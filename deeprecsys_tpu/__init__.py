@@ -1,11 +1,11 @@
-"""DeepRecSys-TPU: a TPU-native at-scale recommendation inference framework.
+"""DeepRecSys in JAX: an at-scale recommendation inference framework.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of
+A ground-up JAX/XLA re-design with the capabilities of
 harvard-acc/DeepRecSys (reference layout documented in SURVEY.md):
 
 - ``config``   — model/serving configuration (reference: utils/utils.py cli()
   + models/configs/*.json)
-- ``ops``      — TPU compute primitives: fused multi-table embedding bag,
+- ``ops``      — compute primitives: fused multi-table embedding bag,
   MLP towers, feature interactions, scanned RNN (reference: Caffe2
   SparseLengthsSum / FC / Concat+BatchMatMul / RecurrentNetwork)
 - ``models``   — the eight industry model families: DLRM-RMC1/2/3, WnD,

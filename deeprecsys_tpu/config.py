@@ -3,7 +3,7 @@
 Reference equivalents: ``utils/utils.py:15-165`` (the ~60-flag argparse CLI
 with JSON config-file override) and ``models/configs/*.json``.
 
-Design differences from the reference (deliberate, TPU-first):
+Design differences from the reference (deliberate):
 
 - Typed dataclasses instead of a mutable argparse namespace threaded through
   every process.
@@ -66,53 +66,40 @@ class ModelConfig:
     num_indices_per_lookup: int = 1
     # DIN: number of extra user-behavior table copies (--user_behavior_tables).
     user_behavior_tables: int = 1000
-    # Parameter/compute dtypes (TPU-native addition; reference is f32-only).
+    # Parameter/compute dtypes (an addition; the reference is f32-only).
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
-    # Embedding lookup implementation: "xla" (gather; default — measured AT
-    # the descriptor-rate wall; hand-written Pallas gathers were retired
-    # after losing to it even extent-coalesced, see DESIGN.md §2).
-    # "hotcold" (serving only): static VMEM-resident hot row set + compacted
-    # cold HBM stream (models/hotcold.py; 1.61x measured on Zipf streams).
+    # Embedding lookup implementation: "xla" (the fused gather; default).
+    # "hotcold" (serving only): a static hot row set gathered from a small
+    # table + a compacted cold stream from the full table (models/hotcold.py).
     # "auto" (serving): sample the engine's data stream at warm-up and pick
     # hotcold iff the hot set would cover >= hotcold_min_hit of lookups
     # (standalone/training paths treat "auto" as the plain gather).
     embedding_impl: str = "xla"
-    # Hot-set size for embedding_impl="hotcold" (rows kept on-chip).
-    # 0 = auto: sized to an 8 MB VMEM budget by utils.memory.suggest_hot_rows
+    # Hot-set size for embedding_impl="hotcold" (rows in the hot table).
+    # 0 = auto: sized to a byte budget by utils.memory.suggest_hot_rows
     # (int8 layouts fit 2-4x more rows in the same budget).
     hot_set_rows: int = 0
     # Minimum sampled hot-set coverage for embedding_impl="auto" to choose
-    # hotcold. Measured crossover on rm1 zipf at full scale (vs packed
-    # direct 3.35 ms): hit 100% -> 1.86x win, 79% -> 1.46x win, 66% ->
-    # 0.82x LOSS, 49% -> 0.43x loss (model_hotcold_{sm,xs,xxs}_pack:rm1) —
-    # below ~75% the padded cold stream plus the hot pass cost more than
-    # they save. 0.75 sits on the safe side of the measured crossover.
+    # hotcold: below it the padded cold stream plus the hot pass cost more
+    # than they save. Declared default, not yet measured on the GPU
+    # (ROADMAP Speed 4 derives it from the zipf cells).
     hotcold_min_hit: float = 0.75
     # Minimum FUSED-TABLE size (MB) for embedding_impl="auto" to consider
-    # the hot/cold split at all: the split pays when the cold gather is
-    # descriptor-wall-bound, which a small table never is. Measured
-    # (trace-based zipf, round 4): every >=1 GB model wins with hotcold
-    # (1.06-1.97x) while ncf's 21.5 MB table LOSES (0.86x — the splitter
-    # combine overhead exceeds the already-cheap direct gather).
-    # Explicit embedding_impl="hotcold" bypasses this floor.
+    # the hot/cold split at all: a small table's direct gather is cheap, so
+    # the split's host pass cannot pay. Declared default, not yet measured
+    # on the GPU (ROADMAP Speed 4). Explicit embedding_impl="hotcold"
+    # bypasses this floor.
     hotcold_min_table_mb: float = 128.0
     # Embedding table quantization: "none" | "int8" (symmetric per-table
-    # scale; 4x HBM capacity vs f32 — gather speed is row-rate-bound so
-    # int8 costs nothing in latency) | "int8_rowwise" (per-ROW scale
+    # scale; 4x capacity vs f32) | "int8_rowwise" (per-ROW scale
     # interleaved into the packed row — trained-table fidelity; see
-    # ops/embedding.py quantize_rowwise_int8). TPU-native addition.
+    # ops/embedding.py quantize_rowwise_int8). An addition.
     table_quant: str = "none"
     # Pack this many consecutive logical rows into one physical table row
-    # (ops/embedding.py pack_table): 1 = unpacked, 0 = auto (pack narrow
-    # rows up to 128 bytes — the measured TPU gather wall is per-DMA and
-    # sub-128-byte rows gather at ~half rate). Applies to float/bf16 and
-    # per-table int8 (auto packs int8 only below 64-byte rows — see
-    # resolved_table_pack); the rowwise layout never packs. TPU-native
-    # addition. Default 0 (auto) — the measured-best layout everywhere it
-    # applies and a no-op for >=128-byte rows (all f32 zoo tables), same
-    # as the CLI's default; set 1 explicitly to keep checkpoints in the
-    # unpacked layout.
+    # (ops/embedding.py pack_table). 0 is an alias of 1, unpacked
+    # (resolved_table_pack); only N > 1 packs. Applies to float/bf16 and
+    # per-table int8; the rowwise layout never packs. An addition.
     table_pack: int = 0
     # Divide all table sizes by this factor (testing / memory-constrained runs).
     table_scale: int = 1
@@ -125,7 +112,7 @@ class ModelConfig:
     # gradient descent on bce-logits pushes negative samples' pre-
     # activations negative, relu zeroes them AND their gradients, and the
     # model collapses to constant-0 scores with loss frozen at log 2 —
-    # measured on din at full scale (train_quality:din round 5) and
+    # seen on din at full scale (benchmarks/train_quality.json) and
     # reproduced at tiny scale in test_train.py. Serving a TRAINED model
     # should also use "logits": relu ties every below-zero score at 0,
     # destroying the learned ranking among negatives. Sigmoid-headed
@@ -191,47 +178,11 @@ class ModelConfig:
 
     @property
     def resolved_table_pack(self) -> int:
-        """table_pack with 0 = auto resolved: pack narrow rows up to one
-        128-byte physical row (the measured per-DMA gather granularity);
-        quantized layouts manage their own packing, so auto stays 1 there."""
-        if self.table_pack != 0:
-            return max(1, self.table_pack)
-        if self.table_quant == "int8_rowwise":
-            # The rowwise layout interleaves a per-row scale, so its rows
-            # are already >=128 bytes wide in the gatherable layout.
-            return 1
-        itemsize = (1 if self.table_quant == "int8"
-                    else 2 if self.param_dtype == "bfloat16" else 4)
-        row_bytes = self.sparse_feature_size * itemsize
-        if self.table_quant == "int8" and row_bytes >= 64:
-            # Measured: 64-byte int8 rows packed 2x REGRESS 1.6x
-            # (full_int8p:rm2 35.0 ms vs full_int8u:rm2 21.4 ms — the
-            # int8 one-hot select runs on the VPU and at pack=2 its cost
-            # exceeds the saved descriptor rate), while 32-byte rows
-            # packed 4x win 1.8x (full_int8p:rm1 3.69 vs full_int8u:rm1
-            # 6.65 ms). Auto packs int8 only below 64-byte rows.
-            return 1
-        return max(1, 128 // row_bytes)
-
-    @property
-    def hotcold_auto_excluded(self) -> bool:
-        """RETIRED round 4 (always False, kept for one release as an API
-        courtesy): rounds 2-3 guarded ``embedding_impl="auto"`` against
-        the hotcold x packed-tables pair on din-class models after packed
-        hotcold measured 6.78 ms vs 4.55 unpacked at the same 94.6% hit.
-        Round 4's per-HLO diff NAMED the mechanism — a parameter-layout
-        mismatch: the 128-byte packed rows want a ROW-MAJOR cold table,
-        the measurement's jitted param producer emitted column-major, and
-        XLA baked a 2.95 GB whole-table relayout copy into every call
-        (copy.58, 14.0 ms, benchmarks/profile_hlo/summary_hotcold_din_*).
-        With the serving engines' negotiated layouts
-        (engine._commit_param_layouts) the copy vanishes and packed
-        hotcold is the FASTEST din configuration: 3.34 ms vs 3.80
-        unpacked hotcold vs 5.54 packed direct (model_hotcold_negpack:din
-        et al., benchmarks/README.md "Hot/cold x packing"). The guard was
-        a measurement-layout artifact, not a mechanism — auto now
-        composes the pair everywhere layouts are negotiated."""
-        return False
+        """table_pack with its alias 0 resolved to 1 (unpacked): on an
+        H100 the unpacked bf16 tables served rm1, rm3 and din faster than
+        two rows packed per 128 bytes (PERF.md "Row packing"). Packed
+        int8 tables are unmeasured on the H100."""
+        return max(1, self.table_pack)
 
     @property
     def dense_dim(self) -> int:
@@ -378,13 +329,14 @@ class ServingConfig:
 
     # Engines
     inference_engines: int = 1
-    # tpu: engine threads sharing the chip; cpu: threads on the host
-    # backend; cpu-mp: one OS process per engine over native shm rings
-    # (reference parity: DeepRecSys.py:62-78); sim: latency-model sleep.
-    engine_backend: str = "tpu"
+    # accel: engine threads sharing the GPU (utils/devices.py
+    # pick_accel_device); cpu: threads on the host backend; cpu-mp: one OS
+    # process per engine over native shm rings (reference parity:
+    # DeepRecSys.py:62-78); sim: latency-model sleep.
+    engine_backend: str = "accel"
     # Static-shape batch buckets compiled ahead of time; requests are padded
-    # up to the nearest bucket (TPU analog of the reference's pre-generate-
-    # at-max-then-slice, inferenceEngine.py:200-206).
+    # up to the nearest bucket (static-shape analog of the reference's
+    # pre-generate-at-max-then-slice, inferenceEngine.py:200-206).
     batch_buckets: tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
     # "static": use batch_buckets as-is. "auto": derive an optimal ladder
     # from the configured size distribution (serving/buckets.py) — fewer
@@ -405,16 +357,16 @@ class ServingConfig:
     arr_steps: int = 20
     sched_timeout: int = 100
 
-    # Request coalescing (TPU-native addition): drain up to max_coalesce
-    # waiting sub-requests and run them as ONE padded bucket execution —
-    # the inverse of the reference's query splitting, which exists because
-    # CPU cores want small batches; the MXU wants large ones. Off by
-    # default for reference-faithful behavior.
+    # Request coalescing (an addition): drain up to max_coalesce waiting
+    # sub-requests and run them as ONE padded bucket execution — the
+    # inverse of the reference's query splitting, which exists because
+    # CPU cores want small batches; an accelerator wants large ones. Off
+    # by default for reference-faithful behavior.
     coalesce_requests: bool = False
     max_coalesce: int = 8
 
-    # Big-query offload (utils.py:90-94). On TPU the "accelerator" is the
-    # real big-batch TPU path; the reference's is a simulated GPU.
+    # Big-query offload (utils.py:90-94). Here the "accelerator" is the
+    # real big-batch GPU path; the reference's is a simulated GPU.
     model_accel: bool = False
     accel_request_size_thres: int = 1024
 
@@ -437,8 +389,8 @@ class ServingConfig:
     # recompiling (the hot table is a same-shape param; models/hotcold.py
     # with_hot_ids). If no candidate set clears hotcold_min_hit (the
     # stream lost its head entirely), the split is DISABLED and the plain
-    # gather serves — a headless split measured 2.1x slower than direct
-    # (drift:rm1) — with the engine still watching the stream and
+    # gather serves — a headless split pays its host pass for nothing —
+    # with the engine still watching the stream and
     # re-enabling when a head returns. 0 = off. Guards popularity DRIFT:
     # a hot set frozen at warm-up decays as the id distribution moves.
     # Scope: adaptation requires the engine to START on the hotcold path
@@ -450,22 +402,19 @@ class ServingConfig:
     hotcold_refresh_window: int = 16
     # Cap on the LOOKUPS the refresh/upgrade candidate scan reads from
     # the buffered window (0 = unlimited). The scan (select_hot_ids =
-    # sort-unique) runs on the DISPATCH thread; uncapped at rm2's shape
-    # (16 x 512 x 3840 = 23.6M ids) it measured 6.7 s — a serving stall —
-    # vs ~60-200 ms under this default (benchmarks/refresh_scan_cost.json).
+    # sort-unique) is O(n log n) in the window: uncapped at rm2's shape
+    # (16 x 512 x 3840 = 23.6M ids) it takes seconds
+    # (tools/refresh_scan_cost.py measures it).
     # Capping subsamples whole rows at a uniform stride, which preserves
     # head frequencies (a 2M-lookup sample resolves a 64k-row hot set's
     # zipf head to well under the refresh margin).
     hotcold_scan_budget: int = 2_000_000
-    # Run the candidate scan on a WORKER thread (round 5): even capped,
-    # the scan measured ~0.9 s on the dispatch thread per window at
-    # rm2's shape end-to-end — trigger-request mean 1322 ms vs 408 ms
-    # for the rest, p99 1763 vs 1259 with tracking off
-    # (benchmarks/refresh_scan_impact.json). Async, the dispatch thread
-    # only submits the buffer snapshot and polls a one-slot result queue
-    # per tracked request; install/disable decisions stay on the serve
-    # thread. False = round-4 inline scan (deterministic refresh timing
-    # for comparisons; pays the stall).
+    # Run the candidate scan on a WORKER thread: even capped, an inline
+    # scan stalls the dispatch thread once per window. Async, the
+    # dispatch thread only submits the buffer snapshot and polls a
+    # one-slot result queue per tracked request; install/disable
+    # decisions stay on the serve thread. False = inline scan
+    # (deterministic refresh timing for comparisons; pays the stall).
     hotcold_scan_async: bool = True
 
     # Accept RAGGED real-inference requests (the reference's
@@ -474,9 +423,9 @@ class ServingConfig:
     # compile each), and /v1/predict takes "lengths" (+ optional flat
     # "values"). Off by default: all 8 shipped configs are fixed-length
     # (num_indices_per_lookup_fixed: true) and the masked twin would be
-    # dead compile weight. Compute backends (tpu/cpu/cpu-mp — the blob
+    # dead compile weight. Compute backends (accel/cpu/cpu-mp — the blob
     # arena slots size up for the mask bytes). Composes with EVERY
-    # embedding_impl (round 5): the hot/cold splitter consumes the slot
+    # embedding_impl: the hot/cold splitter consumes the slot
     # mask on the host, mesh engines shard it over "data".
     accept_ragged: bool = False
 
@@ -491,7 +440,7 @@ class ServingConfig:
     log_file: str | None = None
 
     def __post_init__(self):
-        if self.engine_backend not in ("tpu", "cpu", "cpu-mp", "sim"):
+        if self.engine_backend not in ("accel", "cpu", "cpu-mp", "sim"):
             raise ValueError(f"unknown engine_backend {self.engine_backend!r}")
         if self.hotcold_refresh_interval > 0 and self.hotcold_refresh_window < 2:
             # The out-of-sample candidate estimator needs a selection half

@@ -7,12 +7,12 @@ of the whole group (``np.unique`` + redraw loop). Synthetic mode (:152-227):
 per-table stack-distance trace replay via an LRU stack model (see
 ``deeprecsys_tpu/data/trace.py``).
 
-TPU-native redesign: everything is vectorized to the fused (B, T, L) index
+Redesign: everything is vectorized to the fused (B, T, L) index
 layout in one shot — the reference's quadruple Python loop
 (batch x table x sample x redraw) is replaced by batched draws with a
 row-masked rejection loop. Indices within a group come out sorted+unique
 exactly like the reference (``np.unique`` sorts), which also improves
-gather locality on TPU.
+gather locality.
 
 As in the reference, serving engines pre-generate batches at the maximum
 batch size and slice per request (``inferenceEngine.py:200-206``).
@@ -171,8 +171,8 @@ class RecDataGenerator:
         would reset the stack and re-bias the head).
 
         When the native runtime is built, the stream runs through the C++
-        generator (runtime/cpp drs_trace_generate_lru, measured 11.5x the
-        Python loop — benchmarks/README.md "Native runtime"); each impl is
+        generator (runtime/cpp drs_trace_generate_lru, faster than the
+        Python loop); each impl is
         deterministic under the generator seed, but their random streams
         differ from each other.
         """

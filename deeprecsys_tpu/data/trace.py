@@ -297,8 +297,8 @@ def main(argv=None):
 
 class NativeLruTrace:
     """Stateful native LRU trace stream (C++ ``drs_trace_generate_lru``):
-    measured 11.5x the Python loop (benchmarks/README.md "Native
-    runtime"), deterministic via its own splitmix64 state.
+    faster than the Python loop, deterministic via its own splitmix64
+    state.
     Semantically identical LRU-stack model; the random stream differs from
     the numpy path (each impl is reproducible under its seed)."""
 

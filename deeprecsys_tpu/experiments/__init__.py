@@ -7,6 +7,6 @@ drivers). Re-expressed natively:
 - ``op_breakdown`` — per-stage (embedding / interaction / MLP / RNN)
   device-time breakdown per model per batch size.
 - ``sweep`` — batch-size sweeps producing LatencyModel characterization
-  files (the ``accelerator/generate_data.py`` analog) and TPU-vs-CPU
+  files (the ``accelerator/generate_data.py`` analog) and accelerator-vs-CPU
   speedup tables (the ``sweep_rt.py`` analog).
 """

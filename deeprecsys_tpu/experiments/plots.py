@@ -4,16 +4,13 @@ The reference ships its characterization as rendered figures
 (`experiments/operator_breakdown/png/op_breakdown_{cpu,gpu}.png`,
 `experiments/speedup/png/model_speedup.png`, generated by
 `sweep_p.py:164-282` / `sweep_rt.py:186-222`); this is the analog for OUR
-recorded artifacts — it reads benchmarks/*.json (no TPU access needed) and
+recorded artifacts — it reads benchmarks/*.json (no device needed) and
 writes PNGs next to them:
 
-  op_breakdown_tpu.png   per-stage device-time fractions, stacked bars
-                         (from op_breakdown_tpu.json)
-  model_speedup.png      TPU-vs-CPU speedup at b=512, chained-timing
-                         methodology — the floor-free canonical numbers
-                         (from last_bench.json; the per-batch ladder in
-                         characterization/speedup.json is timer-floor
-                         limited for sub-ms models, see benchmarks/README)
+  op_breakdown.png       per-stage device-time fractions, stacked bars
+                         (from op_breakdown.json)
+  model_speedup.png      accelerator-vs-CPU speedup at b=512 (from
+                         last_bench.json, written by bench.py)
   qps_sla.png            latency-bounded QPS at the p95 SLA per model
                          (from qps_sweep.json)
 
@@ -58,7 +55,7 @@ def _style(ax):
 def plot_op_breakdown(bench_dir: Path, out: Path):
     import matplotlib.pyplot as plt
 
-    all_rows = json.loads((bench_dir / "op_breakdown_tpu.json").read_text())
+    all_rows = json.loads((bench_dir / "op_breakdown.json").read_text())
     unknown = {s for r in all_rows for s in r["stage_fraction"]} - set(STAGE_ORDER)
     if unknown:  # a silent omission would make a stack quietly top out < 100%
         raise ValueError(f"stages missing from STAGE_ORDER: {sorted(unknown)}")
@@ -91,8 +88,8 @@ def plot_op_breakdown(bench_dir: Path, out: Path):
                 color=SURFACE, fontsize=10, fontweight="bold")
     ax.set_ylabel("share of device time (%)", color=INK)
     ax.set_ylim(0, 100)
-    ax.set_title(f"Per-stage TPU device time, batch {batch}"
-                 " (op_breakdown_tpu.json)", color=INK, fontsize=11)
+    ax.set_title(f"Per-stage device time, batch {batch}"
+                 " (op_breakdown.json)", color=INK, fontsize=11)
     ax.legend(frameon=False, labelcolor=INK, fontsize=9, loc="center left",
               bbox_to_anchor=(1.0, 0.5))
     fig.tight_layout()
@@ -104,8 +101,8 @@ def plot_model_speedup(bench_dir: Path, out: Path):
     import matplotlib.pyplot as plt
 
     d = json.loads((bench_dir / "last_bench.json").read_text())
-    models = list(d["tpu"])
-    sp = [d["tpu"][m]["samples_per_s"]
+    models = list(d["accel"])
+    sp = [d["accel"][m]["samples_per_s"]
           / d["cpu_baseline"]["results"][m]["samples_per_s"] for m in models]
     fig, ax = plt.subplots(figsize=(7, 4), facecolor=SURFACE)
     ax.set_xscale("log")
@@ -116,13 +113,12 @@ def plot_model_speedup(bench_dir: Path, out: Path):
     for yi, v in zip(y, sp):
         ax.text(v * 1.1, yi, f"{v:.1f}x", va="center", color=INK, fontsize=9)
     ax.set_yticks(list(y), models)
-    ax.set_xlabel("TPU bf16 over CPU f32 throughput, batch 512 (log scale)",
+    ax.set_xlabel("accelerator bf16 over CPU f32 throughput, batch 512 (log scale)",
                   color=INK)
     ax.axvline(2.0, color=INK_2, linewidth=1, linestyle="--", zorder=2)
     ax.text(2.0, len(models) - 0.4, " 2x target", color=INK_2, fontsize=8)
     ax.set_xlim(1, max(sp) * 2.5)
-    ax.set_title("Model speedup, chained-timing methodology"
-                 " (last_bench.json)", color=INK, fontsize=11)
+    ax.set_title("Model speedup (last_bench.json)", color=INK, fontsize=11)
     fig.tight_layout()
     fig.savefig(out, dpi=150, facecolor=SURFACE)
     plt.close(fig)
@@ -173,84 +169,30 @@ def plot_zipf_bench(bench_dir: Path, out: Path):
     plt.close(fig)
 
 
-def plot_drift(bench_dir: Path, out: Path):
-    """Adaptive hot-set refresh under popularity drift (drift:* jobs):
-    per model, the drifted zipf stream served three ways — STALE hot set
-    (warm-up frozen), REFRESHED set (what adaptation converges to), and
-    the direct gather floor. Latency, lower is better. Series colors
-    follow the ENTITY across figures: SERIES[0] = direct gather (as in
-    the zipf figure), SERIES[1] = the adaptive/hot-cold path."""
-    import matplotlib.pyplot as plt
-
-    path = bench_dir / "tpu_work_done.json"
-    if not path.exists():
-        print(f"skip drift figure: {path} missing")
-        return
-    done = json.loads(path.read_text())
-    models = [m for m in ("rm1", "rm2", "rm3")
-              if isinstance(done.get(f"drift:{m}"), dict)
-              and "stale" in done[f"drift:{m}"]]
-    if not models:
-        print("skip drift figure: no drift:* jobs recorded")
-        return
-    conds = (  # fixed slot order, never cycled
-        ("refreshed", "refreshed hot set (adaptive)", SERIES[1]),
-        ("direct", "direct gather", SERIES[0]),
-        ("stale", "stale hot set (warm-up frozen)", SERIES[2]),
-    )
-    fig, ax = plt.subplots(figsize=(7, 4), facecolor=SURFACE)
-    _style(ax)
-    y = list(range(len(models)))[::-1]
-    h = 0.24
-    offs = (h + 0.02, 0.0, -(h + 0.02))
-    for (key, label, color), off in zip(conds, offs):
-        vals = [done[f"drift:{m}"][key]["latency_ms"] for m in models]
-        ax.barh([yi + off for yi in y], vals, height=h, color=color,
-                edgecolor=SURFACE, linewidth=2, zorder=3, label=label)
-    for yi, m in zip(y, models):
-        r = done[f"drift:{m}"]
-        s, rf = r["stale"]["latency_ms"], r["refreshed"]["latency_ms"]
-        cov = r["refreshed"]["hot_coverage"]
-        ax.text(s * 1.03, yi - (h + 0.02),
-                f"refresh {s / rf:.1f}x faster (hot {cov:.0%})",
-                va="center", color=INK, fontsize=9)
-    ax.set_yticks(y, models)
-    ax.set_xlabel("latency per forward, ms — drifted zipf(1.2) ids, "
-                  "batch 512, full tables (lower is better)", color=INK)
-    stale_max = max(done[f"drift:{m}"]["stale"]["latency_ms"] for m in models)
-    ax.set_xlim(0, stale_max * 1.45)
-    ax.legend(loc="lower right", frameon=False, labelcolor=INK, fontsize=9)
-    ax.set_title("Popularity drift: a frozen hot set is worse than no hot "
-                 "set (drift:* jobs)", color=INK, fontsize=11)
-    fig.tight_layout()
-    fig.savefig(out, dpi=150, facecolor=SURFACE)
-    plt.close(fig)
-
-
 def plot_qps_sla(bench_dir: Path, out: Path):
     import matplotlib.pyplot as plt
 
     d = json.loads((bench_dir / "qps_sweep.json").read_text())
-    # Keys are "model:backend": the TPU calibrated-sim series is the
-    # headline; cpu-calibrated-sim records (the matched-regime CPU
+    # Keys are "model:backend": the accelerator calibrated-sim series is
+    # the headline; cpu-calibrated-sim records (the matched-regime CPU
     # baseline) render as a second series — keying by model alone let the
-    # CPU records OVERWRITE the TPU QPS in the rendered figure.
-    tpu: dict[str, float] = {}
+    # CPU records OVERWRITE the accelerator QPS in the rendered figure.
+    accel: dict[str, float] = {}
     cpu: dict[str, float] = {}
     slas = set()
     for key, rec in d.items():
         slas.add(rec["sla_ms"])
         model, _, backend = key.partition(":")
         ok = [p["qps"] for p in rec["sweep"] if p["meets_sla"]]
-        (cpu if backend.startswith("cpu") else tpu)[model] = max(ok) if ok else 0.0
+        (cpu if backend.startswith("cpu") else accel)[model] = max(ok) if ok else 0.0
     if len(slas) > 1:
         raise ValueError(f"qps_sweep.json mixes SLAs {sorted(slas)}; "
                          "plot one SLA at a time")
     sla = slas.pop()
     # Union of both series: a model measured only on one backend must
     # still render (silent omission reads as full coverage).
-    models = sorted(set(tpu) | set(cpu), key=lambda m: -tpu.get(m, 0.0))
-    qps = [tpu.get(m, 0.0) for m in models]
+    models = sorted(set(accel) | set(cpu), key=lambda m: -accel.get(m, 0.0))
+    qps = [accel.get(m, 0.0) for m in models]
     fig, ax = plt.subplots(figsize=(7, 4), facecolor=SURFACE)
     _style(ax)
     import numpy as _np
@@ -258,7 +200,7 @@ def plot_qps_sla(bench_dir: Path, out: Path):
     x = _np.arange(len(models))
     width = 0.38 if cpu else 0.55
     ax.bar(x - (width / 2 if cpu else 0), qps, width=width, color=SERIES[0],
-           edgecolor=SURFACE, linewidth=2, zorder=3, label="TPU (calibrated sim)")
+           edgecolor=SURFACE, linewidth=2, zorder=3, label="accelerator (calibrated sim)")
     for xi, v in zip(x - (width / 2 if cpu else 0), qps):
         ax.text(xi, v, f"{v:.0f}", ha="center", va="bottom", color=INK,
                 fontsize=8)
@@ -331,14 +273,13 @@ def main(argv=None):
     bench_dir = Path(args.bench_dir)
     png = bench_dir / "png"
     png.mkdir(parents=True, exist_ok=True)
-    plot_op_breakdown(bench_dir, png / "op_breakdown_tpu.png")
+    plot_op_breakdown(bench_dir, png / "op_breakdown.png")
     plot_model_speedup(bench_dir, png / "model_speedup.png")
     plot_qps_sla(bench_dir, png / "qps_sla.png")
     plot_zipf_bench(bench_dir, png / "zipf_bench.png")
-    plot_drift(bench_dir, png / "drift.png")
     plot_train_quality(bench_dir, png / "train_quality.png")
-    print(f"wrote {png}/op_breakdown_tpu.png, model_speedup.png, "
-          f"qps_sla.png, zipf_bench.png, drift.png, train_quality.png")
+    print(f"wrote {png}/op_breakdown.png, model_speedup.png, "
+          f"qps_sla.png, zipf_bench.png, train_quality.png")
 
 
 if __name__ == "__main__":

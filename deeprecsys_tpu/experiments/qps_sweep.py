@@ -6,10 +6,10 @@ QPS whose measured p95 meets the SLA — the reference's primary evaluation
 ("latency-bounded QPS", README.md:59, DeepRecSys.py:173-175).
 
 Engines: any backend. The "calibrated-sim" mode drives SimEngines with
-LatencyModels measured on the real TPU (benchmarks/characterization/),
-i.e. the reference's own accelerator-simulation pattern fed with our
-hardware's characterization — useful where per-request relay overhead
-would otherwise dominate (see benchmarks/README.md).
+LatencyModels measured on the accelerator by ``experiments/sweep.py``
+(benchmarks/characterization/accel_<model>.json), i.e. the reference's
+own accelerator-simulation pattern fed with our hardware's
+characterization.
 
 Usage:
     python -m deeprecsys_tpu.experiments.qps_sweep --model rm1 \
@@ -40,18 +40,15 @@ def sweep(model: str, backend: str, sla_ms: float, arrivals_ms, engines: int,
         # cpu-calibrated-sim drives the SAME serving stack with the CPU f32
         # engine characterization (cpu_<model>.json) — the self-measured
         # reference-style baseline BASELINE.md's ">=2x QPS" target compares
-        # against. Run it at the SAME engine count as the TPU sweep (the
-        # recorded comparison uses 2): the ladders were characterized solo,
-        # so many sim engines would model zero host contention — the
-        # 32-engine CPU sweep was measured and discarded as optimistic
-        # (benchmarks/README.md "Latency-bounded QPS").
-        prefix = "tpu" if backend == "calibrated-sim" else "cpu"
+        # against. Run it at the SAME engine count as the accelerator
+        # sweep: the ladders were characterized solo, so many sim engines
+        # would model zero host contention.
+        prefix = "accel" if backend == "calibrated-sim" else "cpu"
         path = CHAR_DIR / f"{prefix}_{model}.json"
         if not path.exists():
             raise FileNotFoundError(
                 f"no {prefix} characterization for {model}; run "
-                "tools/tpu_workqueue.py (tpu) or experiments/sweep.py (cpu)"
-            )
+                "python -m deeprecsys_tpu.experiments.sweep first")
         lm = LatencyModel.load(path)
         eff_backend = "sim"
 

@@ -5,7 +5,7 @@ Reference: ``experiments/scheduling/run_Scheduler.sh`` — 6 seeds x
 512..32 and accel_configs 96..512, comparing the tuned operating points.
 
 Runs on the sim backend by default (latency models for the two paths), so
-the study is hardware-independent and fast; pass --backend cpu/cpu-mp/tpu
+the study is hardware-independent and fast; pass --backend cpu/cpu-mp/accel
 to study real engines.
 
 Usage:

@@ -57,8 +57,8 @@ def stacked_mlp_init(key: jax.Array, num: int, dims, dtype=jnp.float32,
 
     Used for DIN's per-behavior-table attention MLPs (the reference builds a
     separate Caffe2 FC chain per table, ``din.py:246-285``) and MT-WnD's task
-    heads — stacking lets one einsum/vmap evaluate all of them on the MXU at
-    once instead of hundreds of small ops.
+    heads — stacking lets one einsum/vmap evaluate all of them as one
+    batched matmul instead of hundreds of small ops.
 
     ``sum_fanin`` > 1: the caller SUMS the ``num`` stacked outputs
     downstream (DIN's final Sum over ~250 attention units, din.py:282-284)
@@ -67,7 +67,7 @@ def stacked_mlp_init(key: jax.Array, num: int, dims, dtype=jnp.float32,
     pathway is ~sqrt(250)x hotter than its concat siblings at init
     (measured: din's initial bce loss 4.5 vs log 2, and the planted-signal
     holdout AUC reaches 0.75 by step 1200 scaled vs 0.60 unscaled — the
-    same inference-only-reference init trap as ops/rnn.py, DESIGN.md §8b).
+    same inference-only-reference init trap as ops/rnn.py).
     The reference's own init can't see this: it never trains. MT-WnD's
     heads are independent outputs (no sum), so it keeps sum_fanin=1.
     """
@@ -146,8 +146,7 @@ def pooled_lookup(tables, batch: Batch, cfg: ModelConfig) -> jax.Array:
     if cfg.embedding_impl not in ("xla", "auto"):
         # "auto" is a SERVING-time decision (the engine samples its stream
         # at warm-up); off-engine the direct gather is the right choice,
-        # not an error. "pallas" was retired in round 2 (DESIGN.md §2
-        # closure); anything else is a typo. Raising beats silently
+        # not an error; anything else is a typo. Raising beats silently
         # benchmarking xla.
         raise ValueError(f"unknown embedding_impl {cfg.embedding_impl!r} "
                          "(valid: 'xla', 'hotcold', 'auto')")

@@ -8,8 +8,8 @@ with the RNN output (:346-356, an attention-style gate) -> ``BasicRNN`` #1
 (:370-378), keeping only the final hidden state. Top-MLP input =
 Concat[gru_hidden, profile, ad, context] = H + 3*m (:414-426), all-ReLU.
 
-TPU-native redesign: both RNNs are ``jax.lax.scan`` loops with the input
-projection hoisted into one large MXU matmul (ops/rnn.py); the per-step
+Redesign: both RNNs are ``jax.lax.scan`` loops with the input
+projection hoisted into one large matmul (ops/rnn.py); the per-step
 FC+softmax gate is a single batched matmul over the (T_b, B, H) tensor.
 
 Ragged histories: the reference plumbs per-request ``seq_lengths`` and

@@ -11,7 +11,7 @@ weights (``create_mlp`` called with a fresh tag per table) sandwiched as
 ``[3m] + mlp_bot + [m]`` (:253-257) -> final Sum over all per-table outputs
 (:282-284). Top-MLP input = Concat[profile, attention, ad, context] = 4*m.
 
-TPU-native redesign: the ~251 per-table attention MLPs are stacked into
+Redesign: the ~251 per-table attention MLPs are stacked into
 (T_b, n, m) weight arrays and evaluated with ONE batched einsum per layer —
 the reference's per-blob Caffe2 graph builds ~750 separate FC ops for this
 (SURVEY.md §7 "DIN/DIEN scale").

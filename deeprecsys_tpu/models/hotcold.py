@@ -1,15 +1,14 @@
 """Hot/cold-split serving wrapper for any model family.
 
 Takes a standard ``ModelFns`` and produces a serving variant whose sparse
-lookup runs through ``ops.embedding.embedding_bag_hotcold``: a static
-VMEM-sized hot set of rows is served from on-chip memory, and only the
-compacted cold stream pays HBM gather descriptors. Measured end-to-end on
-TPU at production scale: 1.61x over the direct gather at an 81% hot-hit
-rate (benchmarks/tpu_work_done.json ``gather:hotcold_zipf``).
+lookup runs through ``ops.embedding.embedding_bag_hotcold``: a static hot
+set of rows is gathered from a small (K, d) hot table, and only the
+compacted cold stream gathers from the full table. Whether that pays on
+a GPU, whose L2 cache already keeps hot rows of a plain gather, is not
+yet measured (ROADMAP Speed 4).
 
 The reference has no analog — Caffe2's ``SparseLengthsSum`` always gathers
-from the full table; this optimization exists because the TPU gather is
-descriptor-rate-bound and its VMEM is software-managed.
+from the full table.
 
 Applicability: the win requires POPULARITY skew (Zipf head) in the id
 stream, as production embedding streams have. The reference's
@@ -22,8 +21,8 @@ head mass before enabling.
 
 Split responsibilities:
   host (per request): ``split_hot_cold`` — native C++ single-pass splitter
-    (runtime/cpp/drs_runtime.cpp), ~4 ms per 164k lookups, overlapped with
-    device compute by the engine's dispatch pipeline.
+    (runtime/cpp/drs_runtime.cpp), overlapped with device compute by the
+    engine's dispatch pipeline.
   device (jitted): hot gather from the (K, d) hot table + cold gather from
     the full table + segment-sum combine, then the model's own
     ``apply_from_pooled``.
@@ -61,7 +60,7 @@ def cold_buckets_for(n_lookups: int, mesh=None) -> tuple[int, ...]:
     """Pad-bucket ladder for the cold stream, scaled to the mesh: the
     sharded splits pad PER PARTITION CELL (M cells for TP, D*M for
     hybrid), so buckets must scale by the partition count or every chip
-    pads to >= n/8 and the divide-by-M descriptor win is lost. One cap
+    pads to >= n/8 and the divide-by-M cold-gather win is lost. One cap
     bucket (the per-data-shard maximum a cell can hold) guards skewed
     partitions without an uncompiled shape at runtime."""
     if mesh is None:
@@ -85,8 +84,8 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray,
                        mesh=None, hot_index=None) -> HotColdModel:
     """With ``mesh``, the variant runs row-sharded: tables over the
     "model" axis (M shards), the host partitions the cold stream by
-    owning shard so each chip's gather descriptors divide by M, hot hits
-    stay in replicated VMEM, and one psum combines. With a "data" axis of
+    owning shard so each device's cold gather divides by M, the hot
+    table is replicated, and one psum combines. With a "data" axis of
     1 this is the pure TP serving mode (replicated batch,
     ``split_hot_cold_sharded``); with data > 1 the HYBRID mode
     additionally partitions the cold stream per data shard
@@ -125,8 +124,8 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray,
         out = dict(params)
         if isinstance(tables, dict) and ("packed" in tables or "q_packed" in tables):
             # Row-packed layouts (pack_table) compose with the split: the
-            # cold stream gathers >=128-byte physical rows at full
-            # descriptor rate while the hot table is materialized UNPACKED
+            # cold stream gathers packed physical rows while the hot table
+            # is materialized UNPACKED
             # (K, d) once at conversion (exact one-hot select; int8 via
             # int32). See ops.embedding.hotcold_cold_rows.
             from deeprecsys_tpu.ops.embedding import (
@@ -153,8 +152,8 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray,
             else:
                 hot_table = select_packed_rows(arr, hid, pack).astype(arr.dtype)
         elif isinstance(tables, dict):
-            # Quantized tables compose with the split (int8 rows pack 4x
-            # more hot set per byte of VMEM); the hot table is the same
+            # Quantized tables compose with the split (int8 rows fit 4x
+            # more hot set per byte); the hot table is the same
             # layout's rows gathered once at conversion time.
             key2d = "qrows" if "qrows" in tables else "q"
             hot_table = jnp.take(tables[key2d], hid, axis=0)
@@ -166,7 +165,7 @@ def make_hotcold_model(model: ModelFns, hot_ids: np.ndarray,
     def prepare(batch: Batch) -> dict:
         """Host split. A RAGGED batch (``batch.mask``) composes here: the
         splitter consumes the slot mask — invalid slots are neither hot
-        hits nor cold descriptors — so the DEVICE program is unchanged
+        hits nor cold lookups — so the DEVICE program is unchanged
         (same split-dict shapes; the hot-side mask-pool and the compacted
         cold stream already carry the ragged semantics). Zero extra
         compiles for variable-length traffic on every hotcold layout."""

@@ -7,7 +7,7 @@ top MLP (``create_mlp(ln_top, -1, ...)`` :304) followed by
 (:311, :396) — for the shipped config that lands on the heads' final layer;
 we replicate the index-based semantics exactly.
 
-TPU-native: the task heads are identical-shape MLPs, so they are stacked and
+Design: the task heads are identical-shape MLPs, so they are stacked and
 evaluated in one einsum (see ``stacked_mlp_apply``) instead of N separate
 op chains.
 """

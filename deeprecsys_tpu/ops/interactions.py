@@ -4,7 +4,7 @@ Reference equivalent: ``create_interactions`` (``dlrm_s_caffe2.py:331-363``):
 "dot" = Concat(add_axis) + BatchMatMul + Flatten + BatchGather(tril indices)
 + Concat-with-dense; "cat" = plain Concat.
 
-TPU-native notes: the pairwise dot is one batched MXU matmul
+Notes: the pairwise dot is one batched matmul
 (``einsum bfd,bgd->bfg``); the lower-triangle extraction uses a static
 index pair computed at trace time (the reference feeds precomputed
 ``tril_indices`` the same way, ``dlrm_s_caffe2.py:531-535``).
@@ -41,7 +41,7 @@ def dot_interaction(dense_out: jax.Array, emb_out: jax.Array, *, self_interactio
       dense features first (reference Concat order, dlrm_s_caffe2.py:352).
     """
     feats = jnp.concatenate([dense_out[:, None, :], emb_out], axis=1)  # (B, F, d)
-    # f32 MXU accumulation under bf16 compute, as everywhere else (ops/mlp.py).
+    # f32 accumulation under bf16 compute, as everywhere else (ops/mlp.py).
     z = jnp.einsum("bfd,bgd->bfg", feats, feats,
                    preferred_element_type=jnp.float32).astype(feats.dtype)
     ii, jj = _tril_pairs(feats.shape[1], self_interaction)

@@ -4,8 +4,8 @@ Reference equivalent: ``create_mlp`` in every model file (e.g.
 ``dlrm_s_caffe2.py:223-280``): a chain of Caffe2 ``FC`` + ``Relu`` ops with a
 ``Sigmoid`` at layer index ``sigmoid_layer``.
 
-TPU-native notes: weights are stored (in, out) so the forward pass is
-``x @ W + b`` — a plain MXU ``dot_general``; XLA fuses the bias add and
+Notes: weights are stored (in, out) so the forward pass is
+``x @ W + b`` — a plain ``dot_general``; XLA fuses the bias add and
 activation into the matmul epilogue. Initialization matches the reference:
 W ~ N(0, sqrt(2/(in+out))), b ~ N(0, sqrt(1/out))
 (``dlrm_s_caffe2.py:243-252``).
@@ -47,7 +47,7 @@ def mlp_apply(params, x: jax.Array, sigmoid_layer: int = -1,
     out_dtype = x.dtype
     n = len(params)
     for i, layer in enumerate(params, start=1):
-        # MXU accumulation in f32 regardless of storage dtype; downcast at
+        # Accumulation in f32 regardless of storage dtype; downcast at
         # the layer boundary (standard bf16 practice — keeps ranking
         # fidelity, costs nothing: XLA fuses the epilogue).
         y = jnp.dot(x, layer["w"], preferred_element_type=jnp.float32)

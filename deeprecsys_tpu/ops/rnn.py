@@ -5,9 +5,9 @@ twice in DIEN's GRU unit (``dien.py:336-344,370-378``):
 
     h_t = tanh(x_t @ i2h_w^T + i2h_b + h_{t-1} @ gates_t_w^T + gates_t_b)
 
-TPU-native redesign: ``jax.lax.scan`` over a time-major (T, B, in) tensor.
+Redesign: ``jax.lax.scan`` over a time-major (T, B, in) tensor.
 The input projection for ALL timesteps is hoisted out of the scan as one
-large MXU matmul ((T*B, in) @ (in, H)); only the small recurrent matmul
+large matmul ((T*B, in) @ (in, H)); only the small recurrent matmul
 stays inside the scan body.
 
 Init DEPARTS from the reference's plain ``np.random.randn`` for RNN

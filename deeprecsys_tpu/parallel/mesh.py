@@ -2,15 +2,16 @@
 
 No reference equivalent: the reference is single-node and its only
 "distribution" is N OS processes around one shared multiprocessing queue
-(SURVEY.md §2.3). The TPU-native scaling story is a 2-D
+(SURVEY.md §2.3). The scaling story here is a 2-D
 ``jax.sharding.Mesh``:
 
 - axis "data"  — data parallelism over the batch dimension (the analog of
   the reference's replicated engine processes, DeepRecSys.py:62-78);
 - axis "model" — model parallelism for the embedding tables: the fused
-  (total_rows, d) array is row-sharded so each chip holds a slice of every
-  model's tables in HBM, and lookups combine partial pooled sums with a
-  psum over ICI (the analog — and upgrade — of the reference's
+  (total_rows, d) array is row-sharded so each device holds a slice of
+  every model's tables, and lookups combine partial pooled sums with a
+  psum over the interconnect (NVLink between the GPUs of a host; the
+  analog — and upgrade — of the reference's
   ``max_num_tasks`` intra-op threading of SparseLengthsSum).
 """
 
@@ -48,7 +49,7 @@ def distributed_init(coordinator_address: str | None = None, num_processes: int 
                      process_id: int | None = None):
     """Initialize multi-host JAX (``jax.distributed``). No-op when single
     process / already initialized. The reference has no multi-host path at
-    all; this is the DCN-level entry point for >1-host slices."""
+    all; this is the entry point for meshes that span hosts."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(

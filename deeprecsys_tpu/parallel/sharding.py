@@ -1,15 +1,15 @@
 """Parameter sharding and multi-chip execution.
 
-Design (SURVEY.md §2.3 "TPU-native mapping"):
+Design (SURVEY.md §2.3):
 
 - Embedding tables are the memory giants (rm1: ~4 GB f32), so the fused
-  (total_rows, d) array is ROW-SHARDED over the mesh "model" axis: chip k
-  owns rows [k*R/M, (k+1)*R/M). A lookup computes masked partial pooled
+  (total_rows, d) array is ROW-SHARDED over the mesh "model" axis: device
+  k owns rows [k*R/M, (k+1)*R/M). A lookup computes masked partial pooled
   sums from locally-owned rows and combines them with ONE ``psum`` over
-  ICI. Communication volume is (B_local, T, d) — independent of the pooling
-  factor L, which makes row-sharding the right choice for the heavy-pooling
-  models (rm1 L=80, rm2 L=120: up to 120x fewer bytes than exchanging raw
-  rows).
+  the interconnect. Communication volume is (B_local, T, d) — independent
+  of the pooling factor L, which makes row-sharding the right choice for
+  the heavy-pooling models (rm1 L=80, rm2 L=120: up to 120x fewer bytes
+  than exchanging raw rows).
 - MLP towers are tiny by comparison and stay replicated; the batch is
   sharded over the "data" axis. This is classic DLRM hybrid parallelism
   (model-parallel embeddings + data-parallel MLPs) expressed as shardings
@@ -183,11 +183,11 @@ def sharded_embedding_bag_hotcold(
     """Hot/cold pooled lookup over a ROW-SHARDED table (mesh axis "model").
 
     The host pre-partitions the compacted cold stream by owning shard
-    (``ops.embedding.split_hot_cold_sharded``), so chip k issues HBM
-    gather descriptors ONLY for its own cold rows — the descriptor-rate
-    wall divides by the model-axis size — and one psum combines the
-    per-shard cold partial sums. Hot hits gather from the replicated
-    VMEM-sized hot table on every chip (redundant but descriptor-cheap).
+    (``ops.embedding.split_hot_cold_sharded``), so device k gathers ONLY
+    its own cold rows — the cold gather divides by the model-axis size —
+    and one psum combines the per-shard cold partial sums. Hot hits
+    gather from the replicated small hot table on every device
+    (redundant but cheap).
 
     Batch is replicated (pure tensor-parallel serving mode): the cold
     stream's pooling groups span the whole batch, which is what lets the
@@ -239,11 +239,11 @@ def hybrid_embedding_bag_hotcold(
     """Hot/cold pooled lookup on the full HYBRID (data x model) mesh.
 
     The host pre-partitions the cold stream per (data shard, table shard)
-    cell (``ops.embedding.split_hot_cold_hybrid``): each chip gathers only
-    its own cell's cold rows — HBM descriptors divide by the model axis
+    cell (``ops.embedding.split_hot_cold_hybrid``): each device gathers
+    only its own cell's cold rows — cold gathers divide by the model axis
     AND the work parallelizes over the data axis — then one psum over
     "model" completes each data shard's cold partial sums. Hot hits
-    gather from the replicated VMEM hot table, batch-sharded over "data"
+    gather from the replicated hot table, batch-sharded over "data"
     via GSPMD.
 
     Returns (B, T, d) sharded P("data", None, None).
@@ -320,8 +320,8 @@ def tablewise_embedding_bag(
 ) -> jax.Array:
     """Pooled lookup with TABLE-WISE sharding.
 
-    vs. row-sharding (``sharded_embedding_bag``): each chip gathers ONLY
-    its own tables' lookups — N/M gather descriptors per chip instead of N
+    vs. row-sharding (``sharded_embedding_bag``): each device gathers ONLY
+    its own tables' lookups — N/M gathered rows per device instead of N
     masked ones — and the combine is an ``all_gather`` of the per-shard
     pooled slice (B, T/M, d): M-fold less traffic than the row-sharded
     psum of the full (B, T, d). The trade is load balance, handled by the

@@ -1,4 +1,4 @@
-// Native runtime support for DeepRecSys-TPU serving.
+// Native runtime support for DeepRecSys serving.
 //
 // Reference contrast: the reference's inter-process fabric is Python
 // multiprocessing.Queue (pickle + pipe + locks) and its sub-5.5 ms pacing
@@ -338,7 +338,7 @@ extern "C" void drs_hot_index_free(void* p) {
 
 // `slot_mask` (nullable, n bytes): ragged pooling — a 0 slot is a padded
 // (invalid) lookup that must contribute NOTHING: neither a hot hit nor a
-// cold descriptor (exact variable-length SparseLengthsSum semantics,
+// cold lookup (exact variable-length SparseLengthsSum semantics,
 // reference dlrm_s_caffe2.py:179-211 lengths queues).
 // `hot_index` (nullable): prebuilt drs_hot_index_build table over the SAME
 // hot_ids array; when present the membership probe is O(1) expected
@@ -500,10 +500,8 @@ extern "C" int64_t drs_split_hot_cold(
 // data/trace.py trace_generate_lru + generate_stack_distance): draw a
 // stack distance from the measured CDF; sd==0 introduces the next unseen
 // line (head of the rotation), sd>0 re-references the line at LRU depth
-// sd and moves it to the top. Measured 11.5x the Python loop (0.61 ->
-// 7.0 Mref/s, benchmarks/README.md "Native runtime"); this is the
-// data-loader hot loop when generating locality-modeled synthetic
-// streams.
+// sd and moves it to the top. This is the data-loader hot loop when
+// generating locality-modeled synthetic streams.
 //
 // `lines` is the logical LRU list stored as a ring with head offset *h_io
 // (pop(0)+append == advance head, value stays in place — the dominant

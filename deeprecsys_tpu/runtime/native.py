@@ -1,9 +1,10 @@
 """ctypes bindings + on-demand build of the native runtime.
 
-The .so is compiled once with g++ into ``~/.cache/deeprecsys_tpu`` (or
-``DRS_NATIVE_CACHE``) keyed by a source hash, so the repo needs no build
-step. Falls back cleanly: callers use ``native_available()`` and degrade to
-pure-Python equivalents (queue.Queue / time.sleep spin).
+The .so is compiled once with g++ into ``build/native`` at the root of
+the checkout (or ``DRS_NATIVE_CACHE``) keyed by a source hash, so the repo
+needs no build step. Falls back cleanly: callers use
+``native_available()`` and degrade to pure-Python equivalents
+(queue.Queue / time.sleep spin).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ def _cache_dir() -> Path:
     d = os.environ.get("DRS_NATIVE_CACHE")
     if d:
         return Path(d)
-    return Path(os.environ.get("XDG_CACHE_HOME", Path.home() / ".cache")) / "deeprecsys_tpu"
+    return Path(__file__).resolve().parents[2] / "build" / "native"
 
 
 def _build() -> Path:

@@ -2,9 +2,9 @@
 
 XLA compiles one program per batch shape, so engines serve every request at
 the nearest bucket >= its size (``engine.py``). The reference has no such
-constraint (Caffe2 runs any batch), so bucket choice is a TPU-native design
-decision: the default power-of-two ladder wastes up to 2x compute on padding
-and compiles 11 programs.
+constraint (Caffe2 runs any batch), so bucket choice is a design decision
+of this framework: the default power-of-two ladder wastes up to 2x compute
+on padding and compiles 11 programs.
 
 ``optimal_bucket_ladder`` picks at most K bucket sizes minimizing the
 EXPECTED PADDED WORK E[bucket(s)] over an empirical size sample — the right

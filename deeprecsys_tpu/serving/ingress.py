@@ -2,7 +2,7 @@
 
 The reference is single-node: queries enter only through its own load
 generator (``loadGenerator.py``) over in-process ``multiprocessing.Queue``s,
-and there is no external request API at all. For a production TPU serving
+and there is no external request API at all. For a production serving
 deployment the framework needs an ingress so OTHER hosts can submit
 queries; this module adds one without changing the serving stack's
 dataflow: the HTTP front end plays the load generator's role (partition,
@@ -79,7 +79,7 @@ class _Pending:
 class ServingServer:
     """Engine pool + response router with a synchronous ``submit`` API.
 
-    Backend selection mirrors ``orchestrator.run_serving``: "tpu"/"cpu"
+    Backend selection mirrors ``orchestrator.run_serving``: "accel"/"cpu"
     ComputeEngines or "sim" SimEngines, plus an optional accel engine for
     big-query offload (``model_accel``).
     """
@@ -112,7 +112,7 @@ class ServingServer:
         self._cleanup = None
         # Router-thread arena-guard trips (double free / out-of-range):
         # counted and surfaced in /v1/healthz instead of killing the
-        # router (ADVICE r4).
+        # router.
         self.arena_faults = 0
         self.accel_request_q: queue.Queue = queue.Queue(maxsize=32)
 
@@ -172,9 +172,8 @@ class ServingServer:
                                       self._accel_ready_q,
                                       accel_latency_model)
                 else:
-                    import jax
-
                     from deeprecsys_tpu.serving.buckets import resolve_buckets
+                    from deeprecsys_tpu.utils.devices import pick_accel_device
 
                     accel_params = None
                     if checkpoint_path:
@@ -190,7 +189,7 @@ class ServingServer:
                     accel = ComputeEngine(
                         aid, model_cfg, cfg, self.accel_request_q,
                         self._accel_resp_q, self._accel_ready_q,
-                        device=jax.devices()[0], params=accel_params,
+                        device=pick_accel_device(), params=accel_params,
                         seed=cfg.seed + aid,
                         buckets=resolve_buckets(cfg),
                         strict_buckets=False)
@@ -311,7 +310,7 @@ class ServingServer:
 
         from deeprecsys_tpu.models.base import Batch
 
-        if self.cfg.engine_backend not in ("tpu", "cpu", "cpu-mp"):
+        if self.cfg.engine_backend not in ("accel", "cpu", "cpu-mp"):
             raise NotImplementedError(
                 f"predict needs compute engines; backend "
                 f"{self.cfg.engine_backend!r} cannot return scores")
@@ -582,7 +581,7 @@ class ServingServer:
                     # silently and turn every later query into an
                     # undiagnosed 504. Keep the failure LOUD and the
                     # router ALIVE: full traceback + a counter that
-                    # /v1/healthz reports (ADVICE r4).
+                    # /v1/healthz reports.
                     import traceback
 
                     self.arena_faults += 1
@@ -838,7 +837,7 @@ def _health(server: ServingServer) -> dict:
 def _prometheus(registry: dict[str, ServingServer]) -> str:
     """Text exposition (Prometheus 0.0.4) of every model's serving state —
     the pull-based twin of /v1/healthz + /v1/stats, so operators scrape
-    the framework with stock tooling instead of polling JSON. TPU-native
+    the framework with stock tooling instead of polling JSON. An
     addition (the reference's only observability is stdout prints and a
     per-response log file, DeepRecSys.py:143-175)."""
     lines = []

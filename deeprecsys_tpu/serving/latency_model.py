@@ -6,7 +6,7 @@ arbitrary batch size by LINEAR INTERPOLATION IN LOG4 SPACE between the two
 bracketing measured points (:67-97). ``accelerator/generate_data.py`` is
 the sweep that produces the measurements.
 
-Here the same machinery characterizes OUR engine paths (e.g. the TPU
+Here the same machinery characterizes OUR engine paths (e.g. the GPU
 big-batch path vs. a host path) and powers the sleep-based ``sim`` engine —
 the reference's own fake-backend pattern (``accelInferenceEngine.py:58-64``)
 that SURVEY.md §4 identifies as the model for hardware-free testing.
@@ -84,8 +84,7 @@ class LatencyModel:
         dispatch the wall cost is the LARGER of compute and transfer, not
         their sum — plus the un-overlappable scalar dispatch floor. The
         additive ``with_overhead`` model double-counts whichever side is
-        smaller; it over-predicted rm1 +62% / din +86% in
-        benchmarks/sim_validation2.json, which this model exists to fix.
+        smaller, which this model exists to fix.
         """
         return _OverlapModel(self, float(a_ms), float(ms_per_sample))
 
@@ -186,9 +185,7 @@ class _OverlapModel(LatencyModel):
 
 # NOTE: there is deliberately no wall-clock "characterize_engine" helper
 # here. Characterization sweeps live in experiments/sweep.py on the
-# utils/timing.py chained-readback discipline — a perf_counter loop
-# around a run_fn trusts block_until_ready, which is not a fence on
-# relayed backends (the exact failure mode utils/timing.py documents).
+# utils/timing.py chained discipline.
 
 
 def main(argv=None):

@@ -4,7 +4,7 @@ Reference: ``DeepRecSys.py:21-185`` — queue creation, process spawning,
 the response aggregation loop with windowed-p95 feedback, and the final
 QPS / p95 / p99 report.
 
-TPU-native: engines are threads sharing the chip (see engine.py); queues
+Design: engines are threads sharing the accelerator (see engine.py); queues
 are ``queue.Queue``; everything else keeps the reference's dataflow —
 request queue (bounded 1024), accel queue (bounded 32), pid (latency
 feedback) queue, one response queue, readiness barrier queue.
@@ -64,13 +64,13 @@ def run_serving(
     """Run the full serving stack and return measured QPS / tail latency.
 
     Engine backends (serving_cfg.engine_backend):
-      - "tpu": ComputeEngine on jax.devices()[0]
+      - "accel": ComputeEngine on the GPU (utils/devices.py)
       - "cpu": ComputeEngine on the host CPU backend
       - "sim": SimEngine driven by ``latency_model`` (required)
 
     With ``model_accel`` set, one extra engine consumes whole big queries:
     a SimEngine with ``accel_latency_model`` if given (reference parity:
-    simulated accelerator), else a ComputeEngine on the TPU (the real
+    simulated accelerator), else a ComputeEngine on the GPU (the real
     big-batch path).
     """
     cfg = serving_cfg

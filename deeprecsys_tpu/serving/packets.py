@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 
-# Response error codes (TPU-native addition; the reference has no
+# Response error codes (an addition; the reference has no
 # per-request error channel — a failed engine just hangs the run,
 # SURVEY.md §5). Codes, not strings: they must fit the 64-byte POD ring
 # slot (runtime/shm_queue.py) one byte wide.

@@ -8,7 +8,8 @@ object run synchronously in the child — wired to ``ShmRingQueue``s: the
 native lock-free rings carry the same 64-byte packets with no pickling.
 
 Engines force the JAX CPU backend in-child (one process per core is the
-CPU-engine model; the TPU path stays in the parent process).
+CPU-engine model; the accelerator path stays in the parent process, the
+one process that opens the GPU).
 """
 
 from __future__ import annotations
@@ -26,10 +27,6 @@ def _engine_child(engine_id: int, model_cfg: ModelConfig, serving_cfg: ServingCo
                   arena_spec: "tuple[str, int, int] | None" = None):
     import jax
 
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except Exception:
-        pass
     from deeprecsys_tpu.runtime.shm_queue import ShmRingQueue
     from deeprecsys_tpu.serving.engine import ComputeEngine
 
@@ -45,6 +42,10 @@ def _engine_child(engine_id: int, model_cfg: ModelConfig, serving_cfg: ServingCo
         ready_q = _ReadySender(
             ShmRingQueue(64, shm_name=ready_name, create=False),
             engine_id=engine_id)
+        # CPU engines only. A failure here is fatal (reported like any
+        # setup error): a child that went on would open the GPU and
+        # reserve most of its memory next to the parent's engines.
+        jax.config.update("jax_platforms", "cpu")
         request_q = ShmRingQueue(capacity, shm_name=req_name, create=False)
         response_q = ShmRingQueue(capacity, shm_name=resp_name, create=False)
         # Per-engine reload side channel (the shared request ring is MPMC

@@ -69,13 +69,10 @@ def dedup_touched_rows(flat: jax.Array, g_rows: jax.Array):
     (the sum over occurrences — what dense autodiff produces), so the
     scatter issues one write per unique row.
 
-    MEASURED NEGATIVE as a throughput lever (train_dedup:* vs train:*
-    jobs, benchmarks/README.md): the colliding scatter is FASTER on this
-    chip everywhere (dedup 0.56x on rm2's 2M-lookup stream, 0.85-0.88x
-    elsewhere) — XLA's scatter-add absorbs collisions better than the
-    sort+segment pipeline costs. Kept as an option (``dedup=True``) for
-    its cleaner AdaGrad semantics (the accumulator sees each row's true
-    gradient once), not for speed.
+    Its speed against the colliding scatter is not yet measured on the
+    GPU (ROADMAP Speed 8). Kept as an option (``dedup=True``) for its
+    cleaner AdaGrad semantics (the accumulator sees each row's true
+    gradient once).
 
     Returns (uids (N,), summed (N, d)): one entry per unique row followed
     by an inert tail (uids=0, summed=0 — zero-adds on row 0)."""
@@ -267,8 +264,7 @@ def make_sparse_table_step(model, cfg: ModelConfig, tx_rest, learning_rate: floa
             # With dedup, g_rows holds the TRUE per-row gradient (summed
             # over occurrences) — the accumulator sees its g2 once, the
             # dense-autodiff row-wise-AdaGrad semantics; without, each
-            # occurrence contributes its own g2 (legacy path, kept for
-            # the measured A/B).
+            # occurrence contributes its own g2 (the default path).
             row_g2 = jnp.mean(g_rows * g_rows, axis=-1)  # (N,)
             table_acc = table_acc.at[flat].add(row_g2)
             scale = jax.lax.rsqrt(table_acc[flat] + eps)  # post-update accumulator
@@ -298,19 +294,18 @@ class Trainer:
         if cfg.table_quant != "none":
             raise ValueError("training requires float tables (table_quant='none')")
         if sparse_tables and cfg.resolved_table_pack > 1:
-            # Touched-rows updates need the logical (R, d) layout; with
-            # the auto-pack default (table_pack=0 packs narrow rows for
-            # SERVING gathers) a default config would otherwise be
-            # untrainable. Train unpacked — export_serving_params /
-            # the serving config re-pack for deployment.
+            # Touched-rows updates need the logical (R, d) layout; a
+            # packed SERVING config would otherwise be untrainable. Train
+            # unpacked — export_serving_params / the serving config
+            # re-pack for deployment.
             cfg = cfg.replace(table_pack=1)
         if not sigmoid_output(cfg) and cfg.output_head != "logits":
             # Training the relu-scored families THROUGH the reference's
             # final relu is gradient-dead: bce-logits pushes negative
             # samples' pre-activations negative, relu zeroes them and
             # their gradients, and the model collapses to constant-0
-            # scores with loss frozen at log 2 (measured on din at full
-            # scale, round 5). The head has no parameters, so the trained
+            # scores with loss frozen at log 2 (seen on din at full
+            # scale). The head has no parameters, so the trained
             # checkpoint serves either head (config.py output_head).
             cfg = cfg.replace(output_head="logits")
         self.cfg = cfg
@@ -503,9 +498,9 @@ def export_serving_params(params: dict, cfg: ModelConfig,
         new_tables = quantize_pertable_int8(tables, cfg.scaled_rows)
         pack = scfg.resolved_table_pack
         if pack > 1:
-            # The serving layout the returned config resolves to: narrow
-            # int8 rows auto-pack (config.resolved_table_pack), and the
-            # exported bundle must match it — a {"q"} bundle would fail
+            # The serving layout the returned config resolves to
+            # (config.resolved_table_pack): the exported bundle must
+            # match it — a {"q"} bundle would fail
             # the {"q_packed"} model's checkpoint-shape validation.
             from deeprecsys_tpu.ops.embedding import pack_table
 
@@ -547,7 +542,7 @@ def main(argv=None):
 
     from deeprecsys_tpu import zoo
 
-    ap = argparse.ArgumentParser(description="DeepRecSys-TPU trainer")
+    ap = argparse.ArgumentParser(description="DeepRecSys trainer")
     ap.add_argument("--model", default="rm1",
                     help=f"zoo name {zoo.MODEL_NAMES} (ignored with --criteo)")
     ap.add_argument("--table_scale", type=int, default=1)
@@ -575,11 +570,14 @@ def main(argv=None):
                     help="also export a quantized serving bundle")
     ap.add_argument("--export_out", default=None)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--compilation_cache_dir", default=None)
+    ap.add_argument("--compilation_cache_dir", default=None,
+                    help="persistent XLA compilation cache directory; "
+                         "JAX_COMPILATION_CACHE_DIR wins when set, the "
+                         "default is .jax_cache in the checkout")
     args = ap.parse_args(argv)
-    if args.compilation_cache_dir:
-        jax.config.update("jax_compilation_cache_dir", args.compilation_cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from deeprecsys_tpu.utils.devices import init_compilation_cache
+
+    init_compilation_cache(args.compilation_cache_dir)
 
     if args.criteo:
         from deeprecsys_tpu.data.criteo import CriteoReader, criteo_model_config

@@ -1,4 +1,4 @@
-"""HBM capacity planning for model configurations.
+"""Device-memory capacity planning for model configurations.
 
 Answers "does this model fit, and at what dtype/sharding" before paying a
 device allocation — the serving analog of the reference's implicit
@@ -55,23 +55,25 @@ def model_memory_bytes(cfg: ModelConfig) -> dict:
     }
 
 
-def fits_hbm(cfg: ModelConfig, hbm_bytes: int = 16 * 2**30, n_model_shards: int = 1,
+def fits_hbm(cfg: ModelConfig, hbm_bytes: int, n_model_shards: int = 1,
              activation_reserve: float = 0.15) -> bool:
-    """Whether the model's parameters fit per-chip HBM with a reserve for
-    activations/workspace; tables divide over the model axis."""
+    """Whether the model's parameters fit ``hbm_bytes`` of device memory
+    per device with a reserve for activations/workspace; tables divide
+    over the model axis. Pass the memory this process may use, e.g.
+    ``device.memory_stats()["bytes_limit"]``."""
     m = model_memory_bytes(cfg)
     per_chip = m["tables_bytes"] / n_model_shards + m["dense_bytes"]
     return per_chip <= hbm_bytes * (1 - activation_reserve)
 
 
-def suggest_hot_rows(cfg: ModelConfig, vmem_budget_bytes: int = 8 * 2**20) -> int:
-    """Hot-set size for embedding_impl="hotcold" that fits the VMEM budget.
+def suggest_hot_rows(cfg: ModelConfig, budget_bytes: int = 8 * 2**20) -> int:
+    """Hot-set size for embedding_impl="hotcold" that fits ``budget_bytes``.
 
     Row cost depends on the table layout: bf16/f32 rows cost d*dtype bytes;
     per-table int8 rows cost d bytes (so the same budget holds 2-4x more
     hot rows — higher hit rate for free); packed rowwise costs d+4.
-    Default budget 8 MB: half of a v5e core's ~16 MB VMEM, leaving room
-    for the compute pipeline (the measured 1.61x hotcold win used 8 MB).
+    The 8 MB default is a declared value, not yet measured on the GPU
+    (ROADMAP Speed 4 derives it).
     """
     d = cfg.sparse_feature_size
     if cfg.table_quant == "int8":
@@ -80,4 +82,4 @@ def suggest_hot_rows(cfg: ModelConfig, vmem_budget_bytes: int = 8 * 2**20) -> in
         row_bytes = d + 4
     else:
         row_bytes = d * _DTYPE_BYTES[cfg.param_dtype]
-    return max(1, min(int(vmem_budget_bytes // row_bytes), cfg.total_rows))
+    return max(1, min(int(budget_bytes // row_bytes), cfg.total_rows))

@@ -5,7 +5,7 @@
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-BACKEND="${1:-tpu}"
+BACKEND="${1:-accel}"
 for MODEL in rm1 rm2 rm3 wnd mtwnd ncf din dien; do
   echo "=== $MODEL ==="
   python -m deeprecsys_tpu.main \

@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Canonical DeepRecSys-TPU run: full serving with DeepRecSched tuning.
+# Canonical DeepRecSys run: full serving with DeepRecSched tuning.
 # Mirrors the reference's run_DeepRecSys.sh operating point
 # (32 engines there -> thread/process engines here; normal(165,16) query
 # sizes capped at 1024; p95 target 25 ms; batch_configs 512-256-128;
@@ -10,7 +10,7 @@ cd "$(dirname "$0")/.."
 # Positionals (model, backend, engines) may be followed by pass-through
 # flags. Consume only arguments that are NOT flags: a blind `shift 3`
 # would eat "--num_batches" as ENGINES when fewer positionals are given.
-MODEL=rm1; BACKEND=tpu; ENGINES=4
+MODEL=rm1; BACKEND=accel; ENGINES=4
 for var in MODEL BACKEND ENGINES; do
   if [ $# -gt 0 ] && [ "${1#-}" = "$1" ]; then
     eval "$var=\$1"

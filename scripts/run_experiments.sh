@@ -3,12 +3,13 @@
 # characterization sweeps, operator breakdown, scheduling + load-generator
 # studies, and latency-bounded QPS per model. Results land in benchmarks/.
 #
-# Heavy TPU parts (sweeps/breakdown) run only with RUN_TPU=1; everything
-# else uses the TPU-calibrated sim engines and finishes in minutes on CPU.
+# The GPU parts (sweeps/breakdown) run only with RUN_GPU=1, one process at
+# a time; everything else uses the accelerator-calibrated sim engines
+# (ladders from experiments/sweep.py) and finishes in minutes on CPU.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-if [[ "${RUN_TPU:-0}" == "1" ]]; then
+if [[ "${RUN_GPU:-0}" == "1" ]]; then
   python -m deeprecsys_tpu.experiments.sweep --cpu          # ladders + speedup
   python -m deeprecsys_tpu.experiments.op_breakdown --batches 512
 fi

@@ -3,8 +3,8 @@ test_distributed.py; must be an importable module for mp 'spawn').
 
 Each process owns 2 virtual CPU devices; together they form a 4-device
 (data=2, model=2) GLOBAL mesh — the 2-host topology of BASELINE.md's
-scaling target, with Gloo carrying the cross-process collectives that ICI/
-DCN would carry on real TPU hosts.
+scaling target, with Gloo carrying the cross-process collectives that
+NVLink or the network would carry between real hosts.
 """
 
 import os

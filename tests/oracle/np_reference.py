@@ -1,8 +1,8 @@
 """Pure-NumPy re-implementations of the eight reference model op graphs.
 
-This is the independent parity oracle (VERDICT round 1, "next round" #1):
+This is the independent parity oracle:
 each forward pass below is written op-by-op from the REFERENCE graph
-builders in ``/root/reference/models/`` — per-table ``SparseLengthsSum``
+builders in the reference's ``models/`` — per-table ``SparseLengthsSum``
 loops over CSR (indices, lengths) inputs, Caffe2 ``FC`` semantics
 (``y = x @ W^T + b`` with ``W`` stored (out, in)), per-behavior-table
 attention MLP loops, explicit flatten + tril ``BatchGather`` — NOT from the

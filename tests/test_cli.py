@@ -71,26 +71,54 @@ def test_queue_run_end_to_end(capsys):
     assert np.isfinite(res.p95_ms)
 
 
-def test_compilation_cache_flag(tmp_path):
+@pytest.mark.parametrize("source", ["env", "flag", "default"])
+def test_compilation_cache_flag(tmp_path, monkeypatch, source):
+    """JAX_COMPILATION_CACHE_DIR wins and nothing is set in code; else
+    --compilation_cache_dir; else the fixed .jax_cache in the checkout."""
     import jax
 
     from deeprecsys_tpu.main import main
+    from deeprecsys_tpu.utils.devices import DEFAULT_COMPILE_CACHE
 
-    cache = tmp_path / "cc"
-    main(["--model", "ncf", "--table_scale", "2000", "--num_batches", "2",
-          "--mini_batch_size", "8", "--compilation_cache_dir", str(cache)])
-    # The wiring is the testable part (persistence was verified manually:
-    # 19.4s -> 13.1s across process restarts); tiny CPU test programs sit
-    # below the 0.5s min-compile-time persistence threshold.
-    assert jax.config.jax_compilation_cache_dir == str(cache)
+    before = jax.config.jax_compilation_cache_dir
+    argv = ["--model", "ncf", "--table_scale", "2000", "--num_batches", "2",
+            "--mini_batch_size", "8"]
+    if source == "env":
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+        argv += ["--compilation_cache_dir", str(tmp_path / "flag")]
+        want = before
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        if source == "flag":
+            argv += ["--compilation_cache_dir", str(tmp_path / "flag")]
+            want = str(tmp_path / "flag")
+        else:
+            want = str(DEFAULT_COMPILE_CACHE)
+    try:
+        main(argv)
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
-def test_queue_sim_backend_auto_calibrates(capsys):
-    """--engine_backend sim loads the model's recorded TPU ladder for the
-    sim engines (and the offload engine) — the calibrated-sim CLI path."""
-    from deeprecsys_tpu.main import main
+def _synthetic_ladder(directory, model="rm1"):
+    """An accelerator latency ladder in experiments/sweep.py's format."""
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / f"accel_{model}.json").write_text(json.dumps(
+        {"batch_sizes": [1, 4, 16, 64, 256, 1024],
+         "latencies_ms": [0.05, 0.06, 0.08, 0.12, 0.3, 1.0], "base": 4.0}))
+    return directory
 
-    res = main(["--model", "rm1", "--table_scale", "5000", "--queue",
+
+def test_queue_sim_backend_auto_calibrates(capsys, tmp_path, monkeypatch):
+    """--engine_backend sim loads the model's recorded accelerator ladder
+    for the sim engines (and the offload engine) — the calibrated-sim CLI
+    path."""
+    import deeprecsys_tpu.main as cli
+
+    monkeypatch.setattr(cli, "CHARACTERIZATION_DIR",
+                        _synthetic_ladder(tmp_path / "char"))
+    res = cli.main(["--model", "rm1", "--table_scale", "5000", "--queue",
                 "--engine_backend", "sim", "--inference_engines", "2",
                 "--num_batches", "8", "--avg_arrival_rate", "1",
                 "--avg_mini_batch_size", "16", "--max_mini_batch_size", "32",
@@ -139,7 +167,7 @@ def test_serve_mode_sigterm_shutdown(tmp_path):
 
 
 def test_serve_mode_sim_calibrated(tmp_path):
-    """--serve with engine_backend=sim auto-loads the model's TPU
+    """--serve with engine_backend=sim auto-loads the model's accelerator
     characterization (it used to crash at startup: the calibrated-sim
     loader was only wired into --queue)."""
     import json
@@ -149,11 +177,15 @@ def test_serve_mode_sim_calibrated(tmp_path):
     import time
     import urllib.request
 
+    char = _synthetic_ladder(tmp_path / "char")
+    argv = ["--model", "rm1", "--table_scale", "2000", "--serve", "--port",
+            "0", "--engine_backend", "sim", "--inference_engines", "1",
+            "--max_mini_batch_size", "8", "--sub_task_batch_size", "8"]
+    launcher = ("import sys, pathlib, deeprecsys_tpu.main as m; "
+                "m.CHARACTERIZATION_DIR = pathlib.Path(sys.argv[1]); "
+                "m.main(sys.argv[2:])")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "deeprecsys_tpu.main", "--model", "rm1",
-         "--table_scale", "2000", "--serve", "--port", "0",
-         "--engine_backend", "sim", "--inference_engines", "1",
-         "--max_mini_batch_size", "8", "--sub_task_batch_size", "8"],
+        [sys.executable, "-c", launcher, str(char)] + argv,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     try:
@@ -192,14 +224,14 @@ def test_bench_end_to_end_emits_valid_json(tmp_path, capsys, monkeypatch):
     argv = ["bench", "--batch", "32", "--table-scale", "2000", "--iters", "8",
             "--models", "ncf", "wnd"]
     monkeypatch.setattr("sys.argv", argv)
-    bench.main()  # no TPU here: pick_accel_device falls back to host CPU
+    bench.main()  # JAX_PLATFORMS=cpu (conftest): the explicit CPU device
     lines = [l for l in capsys.readouterr().out.splitlines() if l.startswith("{")]
     assert len(lines) == 1
     out = json.loads(lines[-1])  # strict JSON (NaN would fail)
     assert out["unit"] == "samples/s" and out["value"] > 0
     assert isinstance(out["vs_baseline"], (int, float))
     detail = json.loads((tmp_path / "last_bench.json").read_text())
-    assert set(detail["tpu"]) == {"ncf", "wnd"}
+    assert set(detail["accel"]) == {"ncf", "wnd"}
 
     # A cached baseline MISSING a requested model is stale (coverage):
     # rerunning with a third model must remeasure rather than shrink the

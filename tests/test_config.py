@@ -125,19 +125,18 @@ def test_all_reference_config_files_load_and_run():
 
 
 def test_resolved_table_pack_auto_rules():
-    """table_pack=0 auto: pack to the 128-byte DMA granule for narrow
-    float/bf16 rows; int8 packs only below 64-byte rows (full_int8u:rm2
-    measured the d=64 int8 pack as a 1.6x regression); rowwise and
-    explicit values pass through."""
+    """table_pack=0 auto resolves to unpacked for every dtype and
+    quantization (packing lost on an H100, PERF.md); explicit values
+    pass through."""
     from deeprecsys_tpu import zoo
 
     rm1 = zoo.get_config("rm1", table_pack=0, param_dtype="bfloat16")
-    assert rm1.sparse_feature_size == 32 and rm1.resolved_table_pack == 2
+    assert rm1.sparse_feature_size == 32 and rm1.resolved_table_pack == 1
     assert zoo.get_config("rm1", table_pack=0).resolved_table_pack == 1  # f32
     rm2 = zoo.get_config("rm2", table_pack=0, param_dtype="bfloat16")
     assert rm2.sparse_feature_size == 64 and rm2.resolved_table_pack == 1
     assert zoo.get_config("rm1", table_pack=0,
-                          table_quant="int8").resolved_table_pack == 4
+                          table_quant="int8").resolved_table_pack == 1
     assert zoo.get_config("rm2", table_pack=0,
                           table_quant="int8").resolved_table_pack == 1
     assert zoo.get_config("rm1", table_pack=0,

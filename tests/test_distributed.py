@@ -3,8 +3,8 @@
 BASELINE.md's scaling target asks for a >=2-host run; real multi-chip
 hardware is unavailable here, so this is the honest next-best: two OS
 processes, each with 2 virtual CPU devices, forming one 4-device global
-mesh with Gloo carrying the cross-process collectives (the role ICI/DCN
-plays between real TPU hosts). The hybrid-sharded apply (row-sharded
+mesh with Gloo carrying the cross-process collectives (the role the
+network plays between real hosts). The hybrid-sharded apply (row-sharded
 tables + data-sharded batch) must produce the single-device result.
 """
 

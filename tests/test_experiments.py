@@ -54,17 +54,30 @@ def test_qps_sweep_sim_smoke():
 
 def test_plots_render(tmp_path):
     """The figure generators (reference op_breakdown/speedup png analog)
-    render from the recorded benchmark JSONs without error and produce
-    non-empty PNGs."""
+    render from benchmark JSONs in the formats experiments/op_breakdown.py,
+    bench.py and experiments/qps_sweep.py write, and produce non-empty
+    PNGs."""
     import matplotlib
     matplotlib.use("Agg")
     from deeprecsys_tpu.experiments import plots
-    from pathlib import Path
 
-    bench = Path(__file__).parent.parent / "benchmarks"
-    plots.plot_op_breakdown(bench, tmp_path / "ob.png")
-    plots.plot_model_speedup(bench, tmp_path / "sp.png")
-    plots.plot_qps_sla(bench, tmp_path / "qps.png")
+    models = ("rm1", "ncf")
+    (tmp_path / "op_breakdown.json").write_text(json.dumps([
+        {"model": m, "batch": 512,
+         "stage_fraction": {"embedding": 0.6, "top_mlp": 0.3,
+                            "bottom_mlp": 0.1}} for m in models]))
+    (tmp_path / "last_bench.json").write_text(json.dumps({
+        "accel": {m: {"samples_per_s": 1e6} for m in models},
+        "cpu_baseline": {"results": {m: {"samples_per_s": 1e5}
+                                     for m in models}}}))
+    sweep = [{"arrival_ms": a, "qps": 1000 / a, "p95_ms": 10 * a,
+              "meets_sla": 10 * a <= 25} for a in (1.0, 2.0, 4.0)]
+    (tmp_path / "qps_sweep.json").write_text(json.dumps({
+        f"{m}:{b}": {"sla_ms": 25.0, "sweep": sweep}
+        for m in models for b in ("calibrated-sim", "cpu-calibrated-sim")}))
+    plots.plot_op_breakdown(tmp_path, tmp_path / "ob.png")
+    plots.plot_model_speedup(tmp_path, tmp_path / "sp.png")
+    plots.plot_qps_sla(tmp_path, tmp_path / "qps.png")
     for f in ("ob.png", "sp.png", "qps.png"):
         assert (tmp_path / f).stat().st_size > 10_000
 
@@ -72,8 +85,7 @@ def test_plots_render(tmp_path):
 def test_skew_bench_auto_matches_engine_rule():
     """experiments/skew_bench replays the serving engines' auto decision:
     coverage >= hotcold_min_hit -> hotcold (including din-class PACKED
-    configs — the round 2-3 guard fell with the layout mechanism, see
-    config.hotcold_auto_excluded), below threshold -> xla."""
+    configs), below threshold -> xla."""
     import jax
 
     from deeprecsys_tpu import zoo
@@ -92,15 +104,14 @@ def test_skew_bench_auto_matches_engine_rule():
                        table_scale=50000, iters=8)
     assert x["impl"] == "xla" and x["hot_coverage"] is None
     # The size floor: without the override the scaled-down table is far
-    # below hotcold_min_table_mb, so auto declines WITHOUT sampling —
-    # measured 0.86x on ncf's real 21.5 MB table (trace zipf, round 4).
+    # below hotcold_min_table_mb, so auto declines WITHOUT sampling.
     f = measure_skewed("rm1", cpu, impl="auto", batch=16,
                        table_scale=50000, iters=8)
     assert f["impl"] == "xla" and f["hot_coverage"] is None
     # din-class PACKED config: auto now samples and composes hotcold
     # with the packed tables (the retired guard used to force xla here).
     cfg = zoo.get_config("din", table_scale=50000,
-                         param_dtype="bfloat16", table_pack=0,
+                         param_dtype="bfloat16", table_pack=2,
                          hotcold_min_table_mb=0)
     impl, hot, cov = resolve_auto_impl(cfg, zipf_stream(cfg, 8))
     assert impl == "hotcold" and hot is not None

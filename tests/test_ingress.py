@@ -1,7 +1,7 @@
 """HTTP serving ingress (serving/ingress.py).
 
 The reference has no external request API (single-node, in-process queues
-only); these tests cover the TPU framework's ingress addition end-to-end
+only); these tests cover this framework's ingress addition end-to-end
 over a real socket: concurrent clients, partitioning + rejoin, accel
 routing, metrics, and malformed-request handling.
 """
@@ -150,7 +150,7 @@ def test_predict_over_process_engines():
     through the shared blob arena (the 64-byte POD ring carries only the
     slot id), the scores come back through the same slot, and they match
     the THREAD-engine scores for the identical payload and seed — the
-    thread path is the correctness bar VERDICT r3 #5 set. Slots are all
+    thread path is the correctness bar. Slots are all
     returned afterwards (no leak)."""
     import numpy as np
 
@@ -277,7 +277,7 @@ def test_predict_ragged_over_process_engines():
 
 
 def test_predict_arena_exhaustion_503_then_recovery():
-    """Transport backpressure end-to-end (VERDICT r4 #3): when every
+    """Transport backpressure end-to-end: when every
     blob-arena slot is staged for in-flight payload sub-requests, a new
     /v1/predict must fail fast with a retryable 503 (OverloadedError ->
     HTTP 503, ingress.py predict handler), leak nothing, and recover to
@@ -484,7 +484,7 @@ def test_healthz_reports_embedding_impl_decision(tmp_path):
     """embedding_impl='auto' decides per engine at warm-up; the operator
     must be able to SEE the decision (and the sampled coverage) over
     HTTP, not just the config that requested 'auto'."""
-    # FULL-scale ncf (336k rows): the VMEM hot budget (~65k rows) covers
+    # FULL-scale ncf (336k rows): the hot-set budget (~65k rows) covers
     # ~20% of a uniform stream -> auto must pick direct. (At small table
     # scales the whole table fits the budget and hotcold is correct —
     # the budget-scaled warm-up sample now resolves that case properly.)
@@ -510,7 +510,7 @@ def test_healthz_reports_embedding_impl_decision(tmp_path):
 
 
 def test_deadline_expired_504_never_dispatched():
-    """Per-request deadline propagation (VERDICT r2 #7): a request whose
+    """Per-request deadline propagation: a request whose
     deadline expires while queued is dropped BEFORE dispatch (no engine
     time burnt), the client gets 504, and /v1/healthz counts the drop."""
     import time
@@ -703,8 +703,8 @@ def test_reload_over_process_engines(tmp_path):
         assert status == 200
         # A path too long for the fragment protocol (255 x 58-byte chunks)
         # must raise BEFORE any handle is registered: an orphan handle
-        # would report 'scheduled' forever and hang its waiters (ADVICE
-        # r3 #1). reload_status keeps showing the last real reload.
+        # would report 'scheduled' forever and hang its waiters.
+        # reload_status keeps showing the last real reload.
         with pytest.raises(ValueError, match="too long"):
             server.reload("/x/" + "y" * (255 * 58))
         _, st = _get(f"{base}/v1/reload")
@@ -928,7 +928,7 @@ def test_prometheus_metrics_exposition(ingress):
 
 
 def test_predict_ragged_lengths_round_trip():
-    """Variable-lengths real inference (VERDICT r3 #8): the reference's
+    """Variable-lengths real inference: the reference's
     lengths+values CSR form through /v1/predict on an accept_ragged
     server. Scores must equal the direct masked forward, a full-length
     ragged request must equal the fixed-form request, and the guards
@@ -1032,8 +1032,8 @@ def test_predict_ragged_refused_without_capability():
 
 @pytest.mark.parametrize("mode", ["mesh", "hotcold"])
 def test_predict_ragged_on_mesh_and_hotcold_servers(mode):
-    """Ragged /v1/predict on the two configurations rounds 1-4 refused
-    (VERDICT r4 #2): a virtual-mesh server (mask sharded over "data")
+    """Ragged /v1/predict on the two configurations rounds 1-4 refused:
+    a virtual-mesh server (mask sharded over "data")
     and a hotcold server (mask consumed by the host splitter). CSR
     lengths+values in, scores equal to the direct masked forward out."""
     import jax
@@ -1090,7 +1090,7 @@ def test_predict_ragged_on_mesh_and_hotcold_servers(mode):
 @pytest.mark.parametrize("accel_kind", ["sim", "real"])
 def test_cpu_mp_with_model_accel_canonical_topology(accel_kind):
     """The reference's CANONICAL topology on the process backend
-    (VERDICT r4 #7, DeepRecSys.py:62-66): N CPU engine OS-processes PLUS
+    (DeepRecSys.py:62-66): N CPU engine OS-processes PLUS
     the accel engine. The accel engine lives in the PARENT (sim: latency
     model only; real: a ComputeEngine on the parent's device) fed by the
     in-process accel queue with its own rejoin router. Big queries route

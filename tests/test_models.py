@@ -48,11 +48,12 @@ def test_forward_packed_tables_match(name, pack):
 
 
 def test_table_pack_auto_resolution():
+    """Auto (0) is unpacked for every layout; explicit values pass."""
     cfg = zoo.get_config("rm1", table_scale=SCALE)  # d=32
-    assert cfg.replace(table_pack=0, param_dtype="bfloat16").resolved_table_pack == 2
-    assert cfg.replace(table_pack=0).resolved_table_pack == 1          # f32 = 128 B
+    assert cfg.replace(table_pack=0, param_dtype="bfloat16").resolved_table_pack == 1
+    assert cfg.replace(table_pack=0).resolved_table_pack == 1
     assert cfg.replace(table_pack=0,
-                       table_quant="int8").resolved_table_pack == 4    # 32 B int8 rows
+                       table_quant="int8").resolved_table_pack == 1
     assert cfg.replace(table_pack=0, param_dtype="bfloat16",
                        table_quant="int8_rowwise").resolved_table_pack == 1
     assert cfg.replace(table_pack=3).resolved_table_pack == 3

@@ -288,7 +288,7 @@ def test_embedding_bag_packed_int8_default_dtype_no_wraparound():
 @pytest.mark.parametrize("layout", ["float", "packed", "int8", "q_packed",
                                     "int8_rowwise"])
 def test_masked_pooling_matches_truncated_sum(layout):
-    """Ragged pooling (VERDICT r3 #8): every bag variant with a (B, T, L)
+    """Ragged pooling: every bag variant with a (B, T, L)
     slot mask equals the per-group truncated sum — exact
     SparseLengthsSum-with-variable-lengths semantics, including empty
     groups (zero vector)."""
@@ -371,7 +371,7 @@ def test_pad_csr_roundtrip():
 
 
 def test_split_hot_cold_masked_semantics_and_native_parity():
-    """Ragged x hotcold (VERDICT r4 #2): the host splitter with a slot
+    """Ragged x hotcold: the host splitter with a slot
     mask — an invalid slot is neither a hot hit (the hot-side mask-pool
     zeros it) nor a cold descriptor (no wasted HBM gather). The native
     C++ splitter (drs_split_hot_cold_masked) must agree with the numpy

@@ -446,7 +446,7 @@ def test_mesh_hotcold_packed_misaligned_falls_back_unpacked():
 
 
 def test_descriptor_wall_scaling_counters():
-    """The round-1 scaling claim, checked by code (VERDICT item 8): on a
+    """The round-1 scaling claim, checked by code: on a
     production-shaped workload the per-chip cold-gather DESCRIPTOR count
     (real slots in the splitter output — each is one HBM row fetch the
     owning chip issues) divides by the model axis, and per-chip batch
@@ -534,7 +534,7 @@ def test_sharded_hotcold_executes_at_mesh_sizes(M):
 
 
 def test_mesh_bench_tool_records_artifact(tmp_path, monkeypatch):
-    """tools/mesh_bench.py (VERDICT r2 #6): the turnkey --mesh DxM run
+    """tools/mesh_bench.py: the turnkey --mesh DxM run
     executes the full hybrid-sharded judged-style measurement on the
     virtual mesh and records per-chip splitter descriptor counters that
     obey the divide-by-(D*M) law."""
@@ -738,7 +738,7 @@ def test_mesh_hotcold_adaptive_refresh_recovers_from_drift(axes):
 @pytest.mark.parametrize("impl,axes", [("xla", (2, 4)), ("hotcold", (1, 4)),
                                        ("hotcold", (2, 4))])
 def test_ragged_payload_through_mesh_engine(impl, axes):
-    """Ragged real inference on MESH engines (VERDICT r4 #2: the two
+    """Ragged real inference on MESH engines (the two
     configurations accept_ragged used to refuse). Direct mesh engines
     shard the slot mask over "data" like the indices it masks; hotcold
     mesh engines consume the mask in the host splitter (per-shard cold

@@ -60,7 +60,7 @@ def test_oracle_parity(name):
     """The JAX forward must match the independent NumPy reference-graph
     oracle (tests/oracle/np_reference.py) at f32 within roundoff: the two
     share only config + weight values; op order, fusion, and layout are
-    derived separately (VERDICT r1 next-round #1)."""
+    derived separately."""
     from tests.oracle.np_reference import (
         csr_from_batch,
         oracle_forward,

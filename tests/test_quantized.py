@@ -56,19 +56,15 @@ def test_int8_model_ranking_tracks_f32(name):
     np.testing.assert_array_equal(out, out2)
 
 
-@pytest.mark.parametrize("name,pack,auto", [("rm1", 4, True), ("ncf", 2, False)])
-def test_int8_packed_matches_unpacked(name, pack, auto):
-    """int8 packing to 128-byte physical rows is bit-identical to the
-    unpacked int8 model (int32-exact pooling, same PRNG stream). Auto
-    (table_pack=0) packs int8 only below 64-byte rows — the d=64 pack is
-    a measured regression (full_int8u:rm2 vs full_int8p:rm2) — but an
-    EXPLICIT pack still composes for d=64."""
+@pytest.mark.parametrize("name,pack", [("rm1", 4), ("ncf", 2)])
+def test_int8_packed_matches_unpacked(name, pack):
+    """Explicit int8 packing (d=32 and d=64 rows) is bit-identical to the
+    unpacked int8 model (int32-exact pooling, same PRNG stream); auto
+    (table_pack=0) stays unpacked."""
     cfg_u = zoo.get_config(name, table_scale=SCALE).replace(table_quant="int8")
-    cfg_p = cfg_u.replace(table_pack=0 if auto else pack)
-    if auto:
-        assert cfg_p.resolved_table_pack == pack
-    else:
-        assert cfg_u.replace(table_pack=0).resolved_table_pack == 1
+    cfg_p = cfg_u.replace(table_pack=pack)
+    assert cfg_p.resolved_table_pack == pack
+    assert cfg_u.replace(table_pack=0).resolved_table_pack == 1
     m_u, m_p = get_model(cfg_u), get_model(cfg_p)
     p_u = m_u.init(jax.random.PRNGKey(0))
     p_p = m_p.init(jax.random.PRNGKey(0))

@@ -96,7 +96,7 @@ def test_latency_model_overhead_roundtrips_json():
 
 
 def test_latency_model_overlap():
-    """with_overlap (VERDICT r2 #5): per-dispatch cost is
+    """with_overlap: per-dispatch cost is
     max(compute, transfer) + floor — the pipeline overlaps transfer of
     request k+1 with compute of request k, so the additive model
     double-counts the smaller side."""
@@ -114,7 +114,7 @@ def test_latency_model_overlap():
 
 
 def test_latency_model_from_reference_raw(tmp_path):
-    """Reference raw_data ingestion (VERDICT r2 #8): the `***` 6-tuple
+    """Reference raw_data ingestion: the `***` 6-tuple
     results_<model>.txt format (predict_execution.py:10-29) loads into a
     LatencyModel; ladder = base**i, point = exec ms/iter (column 5)."""
     lines = []
@@ -267,7 +267,7 @@ def test_watchdog_aborts_on_dead_engine(monkeypatch):
 
 
 def test_coalescing_engine_answers_every_request():
-    """TPU-native dynamic batching: backlog drained into one bucket run;
+    """Dynamic batching: backlog drained into one bucket run;
     every sub-request still gets its own response."""
     model_cfg = zoo.get_config("ncf", table_scale=SCALE)
     cfg = ServingConfig(
@@ -581,7 +581,7 @@ def test_engine_hotcold_end_to_end():
 def test_engine_auto_embedding_impl_picks_by_coverage():
     """embedding_impl='auto': the engine samples its own stream at warm-up
     and picks hotcold iff the hot set covers >= hotcold_min_hit of
-    lookups. Small tables + VMEM-budgeted hot set -> coverage ~1 ->
+    lookups. Small tables + budget-sized hot set -> coverage ~1 ->
     hotcold; a forced tiny hot set over the same uniform stream ->
     coverage ~tiny -> direct path."""
     import time
@@ -787,8 +787,8 @@ def test_hotcold_adaptive_refresh_recovers_from_drift(scan_async):
 
         # interval=4: the 4th request submits the scan to the worker;
         # the swap applies on the next tracked request's poll
-        # (hotcold_scan_async default — the scan no longer stalls the
-        # dispatch thread, benchmarks/refresh_scan_impact.json).
+        # (hotcold_scan_async default — the scan does not stall the
+        # dispatch thread).
         for i in range(8):
             server.predict(drift_batch(i))
             if eng.hot_refreshes:
@@ -823,7 +823,7 @@ def test_hotcold_adaptive_refresh_recovers_from_drift(scan_async):
         # Phase 3 — the stream loses its head entirely (uniform over all
         # rows): no hot set can clear hotcold_min_hit, so the engine must
         # DISABLE the split and serve the plain fused gather (a headless
-        # split is slower than direct — measured 2.1x worse, drift:rm1).
+        # split pays the host pass and the hot gather for nothing).
         def uniform_batch(seed):
             rng = np.random.default_rng(1000 + seed)
             return np.stack(
@@ -927,7 +927,7 @@ def test_engine_hotcold_int8_end_to_end():
     from deeprecsys_tpu.serving.engine import ComputeEngine
     from deeprecsys_tpu.serving.packets import ServiceRequest
 
-    # hot_set_rows=0 exercises the auto (VMEM-budgeted) sizing path.
+    # hot_set_rows=0 exercises the auto (budget-sized) sizing path.
     model_cfg = zoo.get_config("ncf", table_scale=2000).replace(
         embedding_impl="hotcold", hot_set_rows=0, table_quant="int8")
     cfg = ServingConfig(engine_backend="cpu", batch_buckets=(8,),
@@ -1542,24 +1542,10 @@ def test_idle_engine_applies_reload(tmp_path):
     assert h2.event.wait(timeout=5) is True or h2.error is not None
 
 
-def test_hotcold_auto_excluded_retired():
-    """The round 2-3 packed x hotcold guard is RETIRED (round 4): the
-    din regression it encoded was a measurement-layout artifact (a
-    2.95 GB relayout copy that the engines' negotiated layouts remove —
-    packed hotcold measured 3.34 ms vs 5.54 packed direct,
-    model_hotcold_negpack:din). The property stays one release as an
-    API courtesy and must never exclude anything."""
-    din = zoo.get_config("din", table_pack=0, param_dtype="bfloat16")
-    assert din.resolved_table_pack > 1
-    assert not din.hotcold_auto_excluded
-
-
 def test_engine_auto_composes_hotcold_with_packed_tables():
     """embedding_impl='auto' on a din-class (many-table, PACKED) config
-    now picks hotcold when coverage clears the threshold — the round-3
-    guard that forced these to the direct gather fell with the layout
-    mechanism (see test_hotcold_auto_excluded_retired). Scores through
-    the packed hotcold engine must match the plain packed forward."""
+    picks hotcold when coverage clears the threshold. Scores through the
+    packed hotcold engine must match the plain packed forward."""
     import time
 
     import jax
@@ -1589,7 +1575,7 @@ def test_engine_auto_composes_hotcold_with_packed_tables():
         assert not isinstance(got, Exception), got
         return eng, req_q, resp_q
 
-    for pack in (0, 1):
+    for pack in (2, 1):
         eng, req_q, resp_q = start(base.replace(table_pack=pack))
         assert eng._hotcold is not None, f"pack={pack}: auto must pick hotcold"
         assert eng.hot_coverage == 1.0   # 420-row table: full coverage
@@ -1610,34 +1596,6 @@ def test_engine_auto_composes_hotcold_with_packed_tables():
         np.testing.assert_allclose(r.scores, want, rtol=2e-4, atol=1e-5)
         req_q.put(None)
         eng.join(timeout=60)
-
-
-def test_engine_negotiates_param_layouts():
-    """Engine setup commits params into the layouts the compiled apply
-    prefers (one-time relayout instead of a per-call whole-table copy —
-    utils/layouts.py; TPU evidence in benchmarks/profile_hlo)."""
-    model_cfg = zoo.get_config("ncf", table_scale=SCALE)
-    cfg = ServingConfig(engine_backend="cpu", batch_buckets=(8,),
-                        max_mini_batch_size=8)
-    eng, req_q, resp_q = _start_cpu_engine(model_cfg, cfg)
-    assert eng._param_formats is not None  # negotiation ran and stuck
-    import jax
-
-    leaves = jax.tree_util.tree_leaves(eng.params)
-    fmt_leaves = jax.tree_util.tree_leaves(
-        eng._param_formats, is_leaf=lambda x: hasattr(x, "layout"))
-    assert len(leaves) == len(fmt_leaves)
-    for arr, fmt in zip(leaves, fmt_leaves):
-        assert arr.format.layout == fmt.layout
-    # And it still serves.
-    import time
-
-    from deeprecsys_tpu.serving.packets import ServiceRequest
-
-    req_q.put(ServiceRequest(batch_id=0, epoch=0, arrival_time=time.time(),
-                             batch_size=4, total_sub_batches=1))
-    assert resp_q.get(timeout=120).error_code == 0
-    req_q.put(None)
 
 
 def test_payload_request_coalesced_with_synthetic_traffic():
@@ -1836,7 +1794,7 @@ def test_payload_scores_through_hotcold_engine():
 
 
 def test_hotcold_refresh_tracks_ragged_streams_by_valid_slots():
-    """Ragged x adaptive refresh (VERDICT r4 #2): on a masked stream the
+    """Ragged x adaptive refresh: on a masked stream the
     tracker must count coverage over VALID slots only (a lengths-1 batch
     on an L=80 model is 79/80 padding — counting pads as misses would
     read a phantom coverage collapse), and candidate selection must

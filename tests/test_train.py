@@ -204,10 +204,28 @@ def test_train_cli_synthetic_and_export(tmp_path):
     qcfg = cfg.replace(table_quant="int8")
     qparams = get_model(qcfg).init(jax.random.PRNGKey(0))
     q = load_params(str(ck) + "_q", qparams)
-    # int8 d=32 rows auto-pack (resolved_table_pack): the exported bundle
-    # carries the packed serving layout.
-    key = "q_packed" if qcfg.resolved_table_pack > 1 else "q"
-    assert q["tables"][key].dtype == jnp.int8
+    # The exported bundle carries the serving config's table layout
+    # (resolved_table_pack): the default is unpacked.
+    assert qcfg.resolved_table_pack == 1
+    assert q["tables"]["q"].dtype == jnp.int8
+
+    # An explicitly packed serving config re-packs the int8 export
+    # (4 rows per physical row) and serves the same scores.
+    from deeprecsys_tpu.data import RecDataGenerator
+    from deeprecsys_tpu.models.base import Batch
+    from deeprecsys_tpu.train import export_serving_params
+
+    pcfg = cfg.replace(table_pack=4)
+    sp, spcfg = export_serving_params(restored, pcfg, table_quant="int8")
+    assert spcfg.resolved_table_pack == 4
+    assert set(sp["tables"]) == {"q_packed", "scale"}
+    assert sp["tables"]["q_packed"].dtype == jnp.int8
+    assert sp["tables"]["q_packed"].shape[1] == 4 * cfg.sparse_feature_size
+    host = RecDataGenerator(cfg, seed=3).generate_batch(16)
+    batch = Batch(dense=jnp.asarray(host.dense), indices=jnp.asarray(host.indices))
+    np.testing.assert_allclose(
+        np.asarray(get_model(spcfg).apply(sp, batch)),
+        np.asarray(get_model(qcfg).apply(q, batch)), rtol=1e-5, atol=1e-6)
 
 
 def test_train_cli_criteo(tmp_path):
@@ -337,23 +355,23 @@ def test_sparse_step_dedup_matches_colliding_scatter_sgd():
 
 
 def test_sparse_trainer_accepts_auto_packed_default_config():
-    """The auto-pack default (table_pack=0 packs narrow rows for serving
-    gathers) must not make a DEFAULT config untrainable: the sparse
-    trainer transparently trains the logical (R, d) layout (packing is a
-    serving-side transform; export re-packs). Regression for the driver's
-    dryrun_multichip, which broke when the default flipped to auto."""
+    """A packed serving config (table_pack > 1) must not be untrainable:
+    the sparse trainer transparently trains the logical (R, d) layout
+    (packing is a serving-side transform; export re-packs). Regression
+    for dryrun_multichip's shape, which broke when packing was the
+    default."""
     from deeprecsys_tpu.config import ModelConfig
     from deeprecsys_tpu.train import Trainer
 
-    # d=8 f32 rows (32 B) auto-pack 4x — the dryrun's exact shape.
+    # d=8 f32 rows packed 4x — the dryrun's exact shape.
     cfg = ModelConfig(
         model_type="dlrm", model_name="autopack",
         mlp_bot=(16, 8), mlp_top=(16, 8, 1),
         embedding_rows=(64, 64, 32, 32),
         sparse_feature_size=8, num_indices_per_lookup=4,
-        interaction_op="dot",
+        interaction_op="dot", table_pack=4,
     )
-    assert cfg.resolved_table_pack > 1  # premise: auto actually packs
+    assert cfg.resolved_table_pack == 4
     tr = Trainer(cfg, optimizer="adagrad", learning_rate=0.05, loss="bce",
                  sparse_tables=True)
     assert tr.cfg.resolved_table_pack == 1  # trains the logical layout

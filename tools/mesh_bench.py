@@ -1,26 +1,22 @@
-"""Turnkey multi-chip scaling measurement: one flag, full judged-style run.
+"""Turnkey multi-device scaling measurement: one flag, bench-style run.
 
-BASELINE.md's ">= 2 hosts examples/s" row is unmeasurable in this 1-chip
-environment; this tool keeps the path warm so a real slice run is a
-one-liner when hardware appears:
-
-    python tools/mesh_bench.py --mesh 2x4                  # real devices
+    python tools/mesh_bench.py --mesh 1x4                  # four GPUs
     python tools/mesh_bench.py --mesh 2x4 --virtual 8      # CPU rehearsal
 
 It executes, per model, the judged bench's chained-readback measurement
 (bench.py methodology: runtime trip count, two-point slope) with the FULL
 hybrid sharding the serving engines use — embedding tables row-sharded
 over the mesh "model" axis, batch over "data", XLA inserting the psum —
-and records, per (data, model) mesh factorization, the per-chip cold-
-gather DESCRIPTOR counters from the native splitter (each real slot is
-one HBM row fetch the owning chip issues). The counters are the
+and records, per (data, model) mesh factorization, the per-device cold-
+gather counters from the native splitter (each real slot is one row
+fetch the owning device issues). The counters are the
 hardware-independent scaling evidence: test_parallel.py asserts the
 divide-by-M law; this artifact RECORDS it (benchmarks/mesh_scaling.json).
 
 Virtual runs (``--virtual N`` or fewer real devices than the mesh needs)
 execute on the forced-host CPU platform: their wall times validate that
 the sharded programs compile + run and are labeled ``"virtual": true`` —
-they are NOT TPU performance numbers. On a real slice, times are honest
+they are NOT device performance numbers. On real devices, times are
 chained-readback measurements.
 """
 
@@ -183,7 +179,7 @@ def main(argv=None):
 
     mesh = make_mesh(data=D, model=M, devices=devices[:need])
     print(f"# mesh {D}x{M} on {devices[0].platform} "
-          f"({'VIRTUAL rehearsal — times are not TPU numbers' if virtual else 'real devices'}), "
+          f"({'VIRTUAL rehearsal — times are not device numbers' if virtual else 'real devices'}), "
           f"table_scale={table_scale}", flush=True)
 
     results, counters = {}, {}

@@ -1,9 +1,8 @@
-"""Soak the round-5 composition stack: RAGGED /v1/predict on a HOTCOLD
+"""Soak the composition stack: RAGGED /v1/predict on a HOTCOLD
 engine with ADAPTIVE REFRESH firing under drift — sustained concurrent
 HTTP load.
 
-This is the newest code-path intersection in the framework (rounds 1-4
-refused ragged on hotcold engines): every request's CSR lengths+values
+This is a deep code-path intersection in the framework: every request's CSR lengths+values
 become a slot mask consumed by the native splitter's hash-index probe
 (runtime/cpp drs_split_hot_cold_indexed), the refresh tracker counts
 valid slots only, and each drift-triggered refresh swap builds a fresh

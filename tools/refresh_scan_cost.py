@@ -1,20 +1,20 @@
-"""Measure the adaptive-refresh candidate-scan cost (VERDICT r3 #7).
+"""Measure the adaptive-refresh candidate-scan cost.
 
 The refresh/upgrade scan (engine._candidate_hot_ids_from) — one
 select_hot_ids (sort-unique, O(N log N) in scanned lookups) over the
-buffered window + one holdout coverage pass — ran on the DISPATCH thread
-until round 5 moved it to a worker (hotcold_scan_async; the numbers here
-are the per-scan HOST cost either way, and still bound the worker's CPU
-contention with the splitter). This records, per
+buffered window + one holdout coverage pass — runs on a worker thread
+(hotcold_scan_async) or inline; the numbers here are the per-scan HOST
+cost either way, and bound the worker's CPU contention with the
+splitter. This records, per
 gather-bound model at the engine-shaped window (hotcold_refresh_window=16
 batches x 512 rows):
 
-- the UNCAPPED scan cost (what round 3 shipped),
+- the UNCAPPED scan cost,
 - the cost under the hotcold_scan_budget row-stride cap (the gate), and
 - the selection-quality delta (holdout coverage of the capped-scan set vs
   the uncapped set — the cap must not degrade the head it selects).
 
-Host-only (pure numpy; no TPU contention). Writes
+Host-only (pure numpy; no device). Writes
 benchmarks/refresh_scan_cost.json.
 
 Run: python tools/refresh_scan_cost.py
